@@ -1,0 +1,66 @@
+// Elementwise BN254 field kernels: Montgomery product, modular add and
+// modular subtract over Fq or Fr.
+//
+// Replaces kernel B1 of the TPU package: zkpoa_tpu/ops/pallas_field.py:297
+// (`mont_mul_tpu` :282, body `k_mont_mul` :51 with `_k_normalize_reduce`
+// :75 and `_k_cond_sub_p` :89) and its add/sub helpers (:102-144). The TPU
+// kernel tiled the batch limb-major into [16, 512] blocks so each limb row
+// filled the vector lanes; here one thread owns one element and reads its
+// 32 bytes with two 16-byte loads, neighbouring threads on neighbouring
+// elements.
+//
+// What bounds it: device-memory bandwidth for add/sub (96 bytes moved per
+// element) and the SMs' 32-bit multiply-add rate for the product (128 wide
+// multiply-adds per element). Simple correct version; speed is later work.
+//
+// `b` broadcasts cyclically: element i uses b[i % b_n] (b_n = n for
+// elementwise, 1 for a scalar, h for an NTT stage's h twiddles).
+#include "field.cuh"
+
+namespace zk {
+
+template <int F, int OP>
+__global__ void field_binop_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                                   uint32_t* __restrict__ out, long long n, long long b_n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fe x = fe_load(a + i * 8);
+  fe y = fe_load(b + (i % b_n) * 8);
+  fe r;
+  if (OP == 0) {
+    r = fe_mul<F>(x, y);
+  } else if (OP == 1) {
+    r = fe_add<F>(x, y);
+  } else {
+    r = fe_sub<F>(x, y);
+  }
+  fe_store(out + i * 8, r);
+}
+
+template <int F>
+static cudaError_t launch_binop(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                long long n, long long b_n, cudaStream_t s) {
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  if (op == 0) field_binop_kernel<F, 0><<<blocks, threads, 0, s>>>(a, b, out, n, b_n);
+  else if (op == 1) field_binop_kernel<F, 1><<<blocks, threads, 0, s>>>(a, b, out, n, b_n);
+  else if (op == 2) field_binop_kernel<F, 2><<<blocks, threads, 0, s>>>(a, b, out, n, b_n);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+}  // namespace zk
+
+// field: 0 = Fq, 1 = Fr; op: 0 = Montgomery product, 1 = add, 2 = subtract
+extern "C" int zk_field_binop(int field, int op, const void* a, const void* b, void* out,
+                              long long n, long long b_n, void* stream) {
+  if (n <= 0) return 0;
+  if (b_n <= 0) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<const uint32_t*>(a);
+  auto pb = static_cast<const uint32_t*>(b);
+  auto po = static_cast<uint32_t*>(out);
+  if (field == zk::FQ) return (int)zk::launch_binop<zk::FQ>(op, pa, pb, po, n, b_n, s);
+  if (field == zk::FR) return (int)zk::launch_binop<zk::FR>(op, pa, pb, po, n, b_n, s);
+  return (int)cudaErrorInvalidValue;
+}
