@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of zkpoa_tpu_torch on one NVIDIA card: build the CUDA kernels,
-hold each against its plain torch version, then prove layer one end to end.
+hold each against its plain torch version, prove layer one end to end, run
+the three-layer workflow in full mode and build a 2^20-leaf Merkle tree.
 
     python3 chip_smoke.py
 
 Phases, each printing a line:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: nvcc builds csrc/*.cu into build/torch_kernels/;
-  3. kernels vs plain, exact equality of limbs, with both times:
+  3. kernels vs plain, exact equality of limbs, with both times and each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its int32
+     operations over the card's int32 issue rate):
      B1 field ops on 2^20 Fq and Fr pairs plus 0, 1 and p - 1; B2-B4 point
      ops on 2^16 G1 and G2 points plus infinity, P == Q, P == -Q and absent
-     points; accumulation and reduction of a G1 MSM at 2^16 and a G2 MSM at
+     points; B8 fixed-base multiplication of 2^16 G1 and 2^14 G2 254-bit
+     scalars with 0, 1, r - 1, r, 2^248, all digits equal and a top-window
+     P == Q among them (decoded points checked against host scalar
+     multiplication, and the B2-loop route, 32 launches of B2, timed beside
+     it); accumulation and reduction of a G1 MSM at 2^16 and a G2 MSM at
      2^14, both at the main path's window size (24 windows of 1024
      buckets); a G1 MSM at 2^20 checked exactly (P_i = g_i G, so the result
      is (sum s_i g_i mod r) G) and the same check for the 2^16 and 2^14 MSMs;
-  4. main path: parse build/recursive_run/sigs.json, then the prover CLI
-     `prove --layer one --repeat 2` (circuit build, setup_device, two proofs
-     against the one key, each verified by the host pairing check); the
-     launch counts of this phase alone must be non-zero for every kernel.
-     Both proofs run in this process, after the kernel checks: the first
-     is not a cold start;
-  5. profile: one more layer-one key and three proofs, the last under
+  4. main path, layer one: parse build/recursive_run/sigs.json, then the
+     prover CLI `prove --layer one --repeat 2` (circuit build, setup_device,
+     two proofs against the one key, each verified by the host pairing
+     check). Both proofs run in this process, after the kernel checks: the
+     first is not a cold start;
+  5. main path, workflow: `python -m zkpoa_tpu_torch.pipeline.workflow`
+     in full mode on build/recursive_run2 (2 signatures, 2 batches, tree
+     height 5, blinding factor 0xB11DD1E5), in process through `main`; the
+     Merkle root, balance sum 657 and the 13 layer-three public values must
+     equal the recorded run's, every proof.json written must verify, and
+     B8 must have run in its setups. The launch counts of phases 4 and 5
+     (each reset just before it) must together be non-zero for every
+     kernel;
+  6. setup A/B: setup_device of the workflow's three layer circuits with B8
+     and with the B2-loop route, in turns B2, B8, B8, B2;
+  7. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
+     4 random leaves and their proofs checked with the host Poseidon;
+  8. profile: one more layer-one key and three proofs, the last under
      torch.profiler; prints its wall time, the device's busy time as the
      union of kernel, memcpy and memset intervals, the idle share, the phase
      ends, the kernels by device time and the peak device memory. The
@@ -39,6 +57,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # ptxas report, stats.json, trace
 SIGS = os.path.join(REPO, "build", "recursive_run", "sigs.json")
+RUN2 = os.path.join(REPO, "build", "recursive_run2")  # the workflow's inputs and recorded outputs
+GOLDEN = os.path.join(RUN2, "2_sigs_2_batches_5_height")
+BLIND = "0xB11DD1E5"
 LAYER_ONE_WIRES = 1_378_647  # witness length of layer one at 1 sig: the MSM plans' size
 T0 = time.time()
 
@@ -67,7 +88,34 @@ KERNELS = {
     "msm_accum_g2": ("csrc/msm_accum.cu", "zkpoa_tpu/ops/msm_pallas.py:1549"),
     "msm_reduce_g1": ("csrc/msm_reduce.cu", "zkpoa_tpu/ops/msm_pallas.py:666"),
     "msm_reduce_g2": ("csrc/msm_reduce.cu", "zkpoa_tpu/ops/msm_pallas.py:666"),
+    "fixed_base_g1": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
+    "fixed_base_g2": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
 }
+
+# The bound of a kernel is the larger of its bytes over the memory rate and
+# its int32 operations over the issue rate (NVIDIA H100 SXM data sheet and
+# Hopper white paper: 3.35 TB/s; 132 SMs x 64 int32 lanes x 1.98 GHz). A
+# 32 x 32 -> 64-bit multiply-add counts as two int32 operations, so a
+# Montgomery product of 8 x 32-bit limbs (64 for the product, 64 for the
+# reduction) is 256; additions are not counted.
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+MONT_OPS = 256
+# Montgomery products per point formula (curve.cuh), G1 over Fq, G2 over
+# Fq2 counted as 3 Fq products per product and 2 per square
+PRODUCTS = {
+    "add_affine": {1: 11, 2: 8 * 3 + 3 * 2},
+    "add": {1: 16, 2: 12 * 3 + 4 * 2},
+    "double": {1: 7, 2: 2 * 3 + 5 * 2},
+}
+COORD_BYTES = {1: 32, 2: 64}
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by) of work moving n_bytes and doing n_ops."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -101,12 +149,16 @@ class Checks:
         self.torch = torch
         self.rows = {}
 
-    def record(self, name, got, want, fn_kernel, fn_plain, reps=20, plain_reps=1):
+    def record(self, name, got, want, fn_kernel, fn_plain, work, reps=20, plain_reps=1):
+        """work = (bytes, int32 operations) of one call, for its bound."""
         err = max_abs_err(self.torch, got, want)
         ms = time_ms(self.torch, fn_kernel, reps)
         plain_ms = time_ms(self.torch, fn_plain, plain_reps)
-        self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        log(f"{name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        bound_ms, bound_by = bound(*work)
+        self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"{name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} B, {work[1]:.4g} int32 ops)")
         if err != 0:
             fail(f"{name}: kernel disagrees with its plain version")
 
@@ -133,13 +185,15 @@ def check_field(torch, checks, gen):
         a = torch.cat([a, edge, edge])
         b = torch.cat([b, edge, edge.flip(0)])
         tag = spec.name.split("_")[1]
-        for op, kname, plain in ((FK.OP_MUL, "field_mont_mul", L.mont_mul_plain),
-                                 (FK.OP_ADD, "field_add_mod", L.add_mod_plain),
-                                 (FK.OP_SUB, "field_sub_mod", L.sub_mod_plain)):
+        m = a.shape[0]
+        for op, kname, plain, ops in ((FK.OP_MUL, "field_mont_mul", L.mont_mul_plain, MONT_OPS),
+                                      (FK.OP_ADD, "field_add_mod", L.add_mod_plain, 16),
+                                      (FK.OP_SUB, "field_sub_mod", L.sub_mod_plain, 16)):
             got = FK.field_binop(spec, op, a, b)
             want = plain(spec, a, b)
             checks.record(f"{kname}[{tag}]", got, want,
-                          lambda: FK.field_binop(spec, op, a, b), lambda: plain(spec, a, b))
+                          lambda: FK.field_binop(spec, op, a, b), lambda: plain(spec, a, b),
+                          (3 * 32 * m, ops * m))
         # host cross-check of a few products
         ints = lambda t: spec.decode(t)  # noqa: E731
         xs, ys, zs = ints(a[-8:]), ints(b[-8:]), ints(L.mont_mul(spec, a[-8:], b[-8:]))
@@ -177,16 +231,78 @@ def check_points(torch, checks, gen):
         valid[7] = False
         g = curve.group
         ar = curve.arith("cuda")
+        cb = COORD_BYTES[g]
         cases = (
             (f"point_add_affine_g{g}", lambda: FK.point_add_affine(g, p, xq, yq, valid),
-             lambda: run_plain(ar, jac_add_affine, p, xq, yq, valid)),
+             lambda: run_plain(ar, jac_add_affine, p, xq, yq, valid), (8 * cb + 1, "add_affine")),
             (f"point_add_g{g}", lambda: FK.point_add(g, p, q),
-             lambda: run_plain(ar, jac_add, p, q)),
+             lambda: run_plain(ar, jac_add, p, q), (9 * cb, "add")),
             (f"point_double_g{g}", lambda: FK.point_double(g, p),
-             lambda: run_plain(ar, jac_double, p)),
+             lambda: run_plain(ar, jac_double, p), (6 * cb, "double")),
         )
-        for name, fk, fp in cases:
-            checks.record(name, fk(), fp(), fk, fp)
+        for name, fk, fp, (nbytes, formula) in cases:
+            checks.record(name, fk(), fp(), fk, fp,
+                          (nbytes * n, PRODUCTS[formula][g] * MONT_OPS * n))
+
+
+def fixed_base_b2_loop(ops, base, host_add, scalars, n_bits):
+    """The B2-loop route of fixed-base multiplication on the card (setup's
+    route before B8), kept here as a yardstick for B8: one gather and one
+    B2 launch per 8-bit window."""
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops.curve import FB_WINDOW, fixed_base_device_table
+
+    xs_t, ys_t, valid_t = fixed_base_device_table(ops, base, host_add, n_bits, scalars.device)
+    sc = L.u32(scalars)
+    acc = ops.infinity((scalars.shape[0],), scalars.device)
+    for j in range((n_bits + FB_WINDOW - 1) // FB_WINDOW):
+        limb, sh = divmod(j * FB_WINDOW, 32)
+        idx = (sc[:, limb] >> sh) & ((1 << FB_WINDOW) - 1)
+        acc = ops.add_affine(acc, xs_t[j][idx], ys_t[j][idx], valid_t[j][idx])
+    return acc
+
+
+def check_fixed_base(torch, checks):
+    """B8 against its plain version at setup's 254 bits: G1 at 2^16 and G2
+    at 2^14 scalars, edge cases first; a few decoded against the host."""
+    import numpy as np
+
+    from zkpoa_tpu_torch import host
+    from zkpoa_tpu_torch.fields import bn254
+    from zkpoa_tpu_torch.ops.curve import (BN254_G1, FB_WINDOW, fixed_base_device_table,
+                                           fixed_base_mul_batch, fixed_base_plain)
+    from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+
+    r = bn254.R
+    # the top window adds (d 2^248) G to k mod 2^248: k = r is P == -Q (d = 48),
+    # k = 98 * 2^248 - r is P == Q (d = 49)
+    edge = [0, 1, r - 1, r, 1 << 248, int("15" * 32, 16), 98 * (1 << 248) - r]
+    rng = np.random.default_rng(1)
+    out = {}
+    for curve, base, add, mul, log_n in ((BN254_G1, bn254.G1_GEN, bn254.g1_add, bn254.g1_mul, 16),
+                                         (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 14)):
+        n, g = 1 << log_n, curve.group
+        scal = edge + [int.from_bytes(rng.bytes(32), "big") % r for _ in range(n - len(edge))]
+        sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
+        tab = fixed_base_device_table(curve, base, add, 254, sc.device)
+        kern = lambda: fixed_base_mul_batch(curve, base, add, sc, 254)  # noqa: E731
+        plain = lambda: fixed_base_plain(curve, *tab, sc, 254)  # noqa: E731
+        got = kern()
+        nwin = (254 + FB_WINDOW - 1) // FB_WINDOW
+        digits = sum(1 for k in scal for j in range(nwin) if (k >> (FB_WINDOW * j)) & 255)
+        cb = COORD_BYTES[g]
+        work = (nwin * 256 * (2 * cb + 1) + n * (32 + 3 * cb),
+                digits * PRODUCTS["add_affine"][g] * MONT_OPS)
+        checks.record(f"fixed_base_g{g}", got, plain(), kern, plain, work, reps=5)
+        pick = list(range(len(edge))) + [len(edge), n - 1]
+        dec = curve.decode_jac(tuple(t[pick] for t in got))
+        if dec != [mul(base, scal[i]) for i in pick]:
+            fail(f"fixed_base_g{g} disagrees with host scalar multiplication")
+        b2 = time_ms(torch, lambda: fixed_base_b2_loop(curve, base, add, sc, 254), 3)
+        out[f"g{g}"] = {"n": n, "b8_ms": checks.rows[f"fixed_base_g{g}"]["ms"], "b2_loop_ms": b2}
+        log(f"fixed_base_g{g} at 2^{log_n}: host decode of {len(pick)} points exact; "
+            f"B2-loop route {b2:.3f} ms")
+    return out
 
 
 def _fixed_base_points(torch, curve, base, host_add, gens):
@@ -206,8 +322,8 @@ def _fixed_base_points(torch, curve, base, host_add, gens):
 def check_msm(torch, checks, gen):
     import numpy as np
 
-    from zkpoa_tpu.fields import bn254
     from zkpoa_tpu_torch import host
+    from zkpoa_tpu_torch.fields import bn254
     from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.ops.curve import BN254_G1
     from zkpoa_tpu_torch.ops.fp2 import BN254_G2
@@ -229,10 +345,17 @@ def check_msm(torch, checks, gen):
         acc_plain = lambda: M.accumulate_plain(  # noqa: E731
             curve, table.xs, table.ys, table.valid, 0, plan)
         buckets = acc()
-        checks.record(f"msm_accum_g{g}", buckets, acc_plain(), acc, acc_plain, reps=3)
+        cb = COORD_BYTES[g]
+        adds = int(plan.starts[:, -1].sum())  # entries in some bucket: one mixed add each
+        lanes = plan.nw * plan.nb
+        checks.record(f"msm_accum_g{g}", buckets, acc_plain(), acc, acc_plain,
+                      (n * (2 * cb + 1) + 4 * plan.nw * n + 4 * plan.nw * (plan.nb + 1)
+                       + 3 * cb * lanes, adds * PRODUCTS["add_affine"][g] * MONT_OPS), reps=3)
         red = lambda: M.reduce(curve, buckets, plan.nw, plan.nb)  # noqa: E731
         red_plain = lambda: M.reduce_plain(curve, buckets, plan.nw, plan.nb)  # noqa: E731
-        checks.record(f"msm_reduce_g{g}", red(), red_plain(), red, red_plain, reps=5)
+        checks.record(f"msm_reduce_g{g}", red(), red_plain(), red, red_plain,
+                      (3 * cb * (lanes + plan.nw),
+                       2 * lanes * PRODUCTS["add"][g] * MONT_OPS), reps=5)
         got = M.msm_shared(curve, table, plan, add, mul)
         want = mul(base, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
         if got != want:
@@ -264,10 +387,11 @@ def check_msm(torch, checks, gen):
 
 
 def main_path(torch):
-    from zkpoa_tpu.prover import groth16
+    """Phase 4: the layer-one prover CLI, launch counts of this phase alone."""
     from zkpoa_tpu_torch import _build
     from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
     from zkpoa_tpu_torch.prover import __main__ as cli
+    from zkpoa_tpu_torch.prover import groth16
 
     with tempfile.TemporaryDirectory() as tmp:
         inp = os.path.join(tmp, "layer_one_input.json")
@@ -293,11 +417,142 @@ def main_path(torch):
         f"{stats['setup_s']:.2f} s, first prove {stats['prove_s'][0]:.2f} s, second "
         f"{stats['prove_s'][1]:.2f} s (in a process warmed by the kernel checks); host verify "
         f"{stats['verify_s']}")
-    log(f"launches in the main path: {json.dumps(counts, sort_keys=True)}")
-    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
-    if missing:
-        fail(f"kernels not launched by the main path: {missing}")
+    log(f"launches in the layer-one phase: {json.dumps(counts, sort_keys=True)}")
     return stats, counts
+
+
+def workflow_path(torch, tmp):
+    """Phase 5: the full-mode workflow on the recorded run's inputs through
+    the CLI's main; its outputs against the recorded ones."""
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.pipeline import workflow
+    from zkpoa_tpu_torch.prover import groth16
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    rc = workflow.main([os.path.join(RUN2, "sigs.json"), os.path.join(RUN2, "anon.csv"), BLIND,
+                        "-p", "1", "-m", "full", "--device", "cuda", "-b", tmp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"workflow exited {rc}")
+    bdir = os.path.join(tmp, "2_sigs_2_batches_5_height")
+
+    def load(*parts):
+        with open(os.path.join(*parts)) as f:
+            return json.load(f)
+
+    if load(bdir, "merkle_root.json") != load(GOLDEN, "merkle_root.json"):
+        fail("workflow Merkle root differs from the recorded run's")
+    balances = [int(load(bdir, f"batch_{b}", "public.json")[0]) for b in range(2)]
+    if sum(balances) != 657:
+        fail(f"workflow balance sum {sum(balances)} (balances {balances}), expected 657")
+    l3 = load(bdir, "layer_three", "public.json")
+    if l3 != load(GOLDEN, "layer_three", "commitment.json") or len(l3) != 13:
+        fail("workflow layer-three public values differ from the recorded commitment")
+    proofs = [(os.path.join(bdir, f"batch_{b}"), "layer_two") for b in range(2)]
+    proofs.append((os.path.join(bdir, "layer_three"), "layer_three"))
+    for d, name in proofs:
+        if not groth16.verify_files(os.path.join(d, f"{name}_vkey.json"),
+                                    os.path.join(d, "proof.json"), os.path.join(d, "public.json")):
+            fail(f"{d}/proof.json does not verify")
+    for k in ("fixed_base_g1", "fixed_base_g2"):
+        if counts.get(k, 0) == 0:
+            fail(f"{k} was not launched by the workflow's setups")
+    with open(os.path.join(bdir, "benchmarks.txt")) as f:
+        bench = f.read()
+    for line in bench.splitlines():
+        if line.strip():
+            log(f"workflow {line.strip()}")
+    log(f"workflow: wall {wall:.2f} s, balances {balances} (sum 657), root and 13 layer-three "
+        f"values equal the recorded run's, 3 proof.json verified (the layer-one proofs are "
+        f"verified inside the run); peak device memory {peak / 2**30:.2f} GiB")
+    log(f"launches in the workflow phase: {json.dumps(counts, sort_keys=True)}")
+    return {"wall_s": wall, "peak_bytes": peak, "benchmarks": bench}, counts, bdir
+
+
+def setup_ab(torch, bdir):
+    """Phase 6: setup_device of each workflow layer circuit with B8 and with
+    the B2-loop route, in turns B2, B8, B8, B2; keys must agree."""
+    from zkpoa_tpu_torch.models.layers import LayerTwoInput, layer_three_circuit, layer_two_circuit
+    from zkpoa_tpu_torch.prover import __main__ as cli
+    from zkpoa_tpu_torch.prover import setup as setup_mod
+
+    with open(os.path.join(bdir, "batch_0", "layer_one_input.json")) as f:
+        c1, _ = cli._build_circuit("one", json.load(f), False)
+    with open(os.path.join(bdir, "batch_0", "layer_two_input.json")) as f:
+        d2 = json.load(f)
+    d2.pop("proof", None)
+    ints = lambda x: [ints(y) for y in x] if isinstance(x, list) else int(x)  # noqa: E731
+    c2 = layer_two_circuit(LayerTwoInput(**{k: ints(v) for k, v in d2.items()}), tree_height=5)
+    with open(os.path.join(bdir, "merkle_root.json")) as f:
+        root = int(json.load(f))
+    c3 = layer_three_circuit([419, 238], root, int(BLIND, 16))
+    b8 = setup_mod.fixed_base_mul_batch
+    out = {}
+    for name, circuit in (("layer one", c1), ("layer two", c2), ("layer three", c3)):
+        r1cs, _ = circuit.compile()
+        times = {"b2_loop": [], "b8": []}
+        keys = {}
+        for route in ("b2_loop", "b8", "b8", "b2_loop"):
+            setup_mod.fixed_base_mul_batch = fixed_base_b2_loop if route == "b2_loop" else b8
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pk = setup_mod.setup_device(r1cs, "cuda")
+                torch.cuda.synchronize()
+                times[route].append(time.perf_counter() - t0)
+            finally:
+                setup_mod.fixed_base_mul_batch = b8
+            keys[route] = (pk.a_query.xs[-4:].cpu(), pk.b2_query.ys[-4:].cpu(), pk.vk_json)
+            del pk
+        same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                   for a, b in zip(keys["b8"], keys["b2_loop"]))
+        if not same:
+            fail(f"{name}: the B8 key differs from the B2-loop key")
+        out[name] = {"constraints": r1cs.n_constraints, **times}
+        log(f"setup A/B {name} ({r1cs.n_constraints} constraints): B2 loop "
+            f"{[round(t, 3) for t in times['b2_loop']]} s, B8 {[round(t, 3) for t in times['b8']]} s")
+    return out
+
+
+def merkle_2p20(torch):
+    """Phase 7: a Merkle tree over 2^20 leaves (height 21); 4 sampled leaves
+    and proofs against the host Poseidon."""
+    import numpy as np
+
+    from zkpoa_tpu_torch.merkle.tree import MerkleTree, verify_proof
+    from zkpoa_tpu_torch.ops import poseidon as poseidon_host
+
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    blob = rng.bytes(20 * n)
+    addrs = [int.from_bytes(blob[20 * i : 20 * i + 20], "big") for i in range(n)]
+    bals = [int(x) for x in rng.integers(0, 2**64, size=n, dtype=np.uint64)]
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = MerkleTree.build(addrs, bals, 21, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    MerkleTree.from_leaves_mont(tree._levels[0])
+    torch.cuda.synchronize()
+    levels_s = time.perf_counter() - t0
+    root = tree.root()
+    for i in rng.choice(n, size=4, replace=False).tolist():
+        p = tree.prove(i)
+        if p.leaf != poseidon_host.poseidon2(addrs[i], bals[i]) or not verify_proof(root, p):
+            fail(f"Merkle leaf {i} or its proof does not check against the host Poseidon")
+    log(f"Merkle 2^20 leaves (height 21): build {[round(t, 3) for t in times]} s "
+        f"(first includes the Poseidon constants; host encoding of the leaves included), "
+        f"the 2^20 - 1 node hashes alone {levels_s:.3f} s; 4 sampled leaves and proofs verified")
+    return {"build_s": times, "levels_s": levels_s}
 
 
 def busy_us(events) -> float:
@@ -319,9 +574,9 @@ def profile_prove(torch):
     and idle share, phase ends, kernels by device time, peak memory."""
     from torch.profiler import ProfilerActivity, profile
 
-    from zkpoa_tpu.prover import groth16
     from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
     from zkpoa_tpu_torch.prover import __main__ as cli
+    from zkpoa_tpu_torch.prover import groth16
     from zkpoa_tpu_torch.prover.prove import _sync, prove
     from zkpoa_tpu_torch.prover.setup import setup_device
 
@@ -420,12 +675,23 @@ def main() -> int:
     checks = Checks(torch)
     check_field(torch, checks, gen)
     check_points(torch, checks, gen)
+    fb_stats = check_fixed_base(torch, checks)
     msm_stats = check_msm(torch, checks, gen)
-    stats, counts = main_path(torch)
+    stats, counts_l1 = main_path(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        wf, counts_wf, bdir = workflow_path(torch, tmp)
+        ab = setup_ab(torch, bdir)
+    counts = {k: counts_l1.get(k, 0) + counts_wf.get(k, 0) for k in set(counts_l1) | set(counts_wf)}
+    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
+    if missing:
+        fail(f"kernels not launched by the layer-one and workflow phases: {missing}")
+    merkle = merkle_2p20(torch)
     prof = profile_prove(torch)
     with open(os.path.join(OUT_DIR, "stats.json"), "w") as f:
-        json.dump({"main_path": stats, "launches": counts, "kernels": checks.rows,
-                   "msm": msm_stats, "profile": prof, "device": name, "smi": smi}, f, indent=1)
+        json.dump({"main_path": stats, "launches": counts, "launches_layer_one": counts_l1,
+                   "launches_workflow": counts_wf, "kernels": checks.rows, "fixed_base": fb_stats,
+                   "msm": msm_stats, "workflow": wf, "setup_ab": ab, "merkle": merkle,
+                   "profile": prof, "device": name, "smi": smi}, f, indent=1)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -435,6 +701,8 @@ def main() -> int:
             "replaces": replaces, "launches": counts.get(kname, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": None,  # no PyTorch call computes any of these functions
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """zkpoa_tpu_torch CUDA kernels against their plain torch versions, on the card.
 
 Every test here needs an NVIDIA card and skips without one. The port does
-not need JAX, so this file imports none, and on a machine without JAX it
-runs without the test directory's conftest (which sets JAX up):
+not need JAX, so this file imports neither JAX nor the JAX package, and on
+a machine without JAX it runs without the test directory's conftest (which
+sets JAX up):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -14,16 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from zkpoa_tpu.fields import bn254
-from zkpoa_tpu.models.gadgets.poseidon_gadget import poseidon
-from zkpoa_tpu.models.r1cs import Circuit
-from zkpoa_tpu.prover import groth16
 from zkpoa_tpu_torch import _build, host
+from zkpoa_tpu_torch.fields import bn254
+from zkpoa_tpu_torch.merkle.tree import MerkleTree
+from zkpoa_tpu_torch.models.gadgets.poseidon_gadget import poseidon
+from zkpoa_tpu_torch.models.r1cs import Circuit
 from zkpoa_tpu_torch.ops import field_kernels as FK
 from zkpoa_tpu_torch.ops import limbs as L
 from zkpoa_tpu_torch.ops import msm as M
-from zkpoa_tpu_torch.ops.curve import BN254_G1, jac_add, jac_add_affine, jac_double, run_plain
+from zkpoa_tpu_torch.ops.curve import (BN254_G1, fixed_base_device_table, fixed_base_mul_batch,
+                                       fixed_base_plain, jac_add, jac_add_affine, jac_double,
+                                       run_plain)
 from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+from zkpoa_tpu_torch.prover import groth16
 from zkpoa_tpu_torch.prover.prove import prove
 from zkpoa_tpu_torch.prover.setup import DeviceG1Points, DeviceG2Points, setup_device
 
@@ -147,3 +151,42 @@ def test_toy_proof_on_card_equals_cpu_proof(card):
     assert (proof.pi_a, proof.pi_b, proof.pi_c) == (want.pi_a, want.pi_b, want.pi_c)
     vk = groth16.VerifyingKey.from_json(pk_gpu.vk_json)
     assert groth16.verify(vk, proof, [wit[w] for w in range(1, r1cs.n_public + 1)])
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+@pytest.mark.parametrize("n_bits", [254, 64])
+def test_fixed_base_kernel_matches_plain_and_host(card, curve, n_bits):
+    """B8 on edge and random scalars: 0, 1, r - 1, r (P == -Q in the top
+    window), 2^248, all digits equal, 98 * 2^248 - r (P == Q in the top
+    window)."""
+    r = bn254.R
+    base, add, mul = ((bn254.G1_GEN, bn254.g1_add, bn254.g1_mul) if curve.group == 1
+                      else (bn254.G2_GEN, bn254.g2_add, bn254.g2_mul))
+    if n_bits == 254:
+        edge = [0, 1, r - 1, r, 1 << 248, int("15" * 32, 16), 98 * (1 << 248) - r]
+    else:
+        edge = [0, 1, (1 << 64) - 1, 1 << 56, int("15" * 8, 16)]
+    rng = np.random.default_rng(n_bits)
+    scal = edge + [int.from_bytes(rng.bytes(32), "big") % (1 << n_bits) for _ in range(300)]
+    sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card)
+    # the table is encoded by B1 launches once per device: make it before counting
+    table = fixed_base_device_table(curve, base, add, n_bits, sc.device)
+    _build.reset_counts()
+    got = fixed_base_mul_batch(curve, base, add, sc, n_bits)
+    assert _build.COUNTS == {f"fixed_base_g{curve.group}": 1}
+    want = fixed_base_plain(curve, *table, sc, n_bits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert curve.decode_jac(got) == [mul(base, k) for k in scal]
+
+
+def test_merkle_tree_on_card_equals_cpu(card):
+    """Poseidon (B1 launches) on the card gives the CPU tree, root and proofs."""
+    rng = np.random.default_rng(3)
+    addrs = [int.from_bytes(rng.bytes(20), "big") for _ in range(100)]
+    bals = [int(x) for x in rng.integers(0, 2**63, size=100)]
+    t_gpu = MerkleTree.build(addrs, bals, 8, device=card)
+    t_cpu = MerkleTree.build(addrs, bals, 8, device="cpu")
+    assert t_gpu.root() == t_cpu.root()
+    for i in (0, 57, 99, 127):
+        assert t_gpu.prove(i) == t_cpu.prove(i)

@@ -19,12 +19,14 @@ import torch
 
 import tests.conftest  # noqa: F401  (JAX on the CPU)
 
-from zkpoa_tpu.models.gadgets.poseidon_gadget import poseidon
-from zkpoa_tpu.models.r1cs import Circuit
+from zkpoa_tpu.models.gadgets import poseidon_gadget as jax_poseidon_gadget
+from zkpoa_tpu.models import r1cs as jax_r1cs
 from zkpoa_tpu.prover import groth16
 from zkpoa_tpu.prover.prove import prove as jax_prove
 from zkpoa_tpu.prover.setup import setup_device as jax_setup_device
 from zkpoa_tpu_torch.convert import limbs16_to_32, proving_key_from_jax
+from zkpoa_tpu_torch.models import r1cs
+from zkpoa_tpu_torch.models.gadgets import poseidon_gadget
 from zkpoa_tpu_torch.prover.prove import prove
 from zkpoa_tpu_torch.prover.setup import setup_device
 
@@ -33,18 +35,23 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _toy_circuit():
-    c = Circuit()
+def _toy_circuit(r1cs_mod, gadget_mod):
+    c = r1cs_mod.Circuit()
     out = c.public_output()
     x = c.var(7)
     y = c.var(11)
-    c.bind_output(out, poseidon(c, [x, y]))
+    c.bind_output(out, gadget_mod.poseidon(c, [x, y]))
     return c.compile()
 
 
 @pytest.fixture(scope="module")
 def toy():
-    return _toy_circuit()
+    """The toy circuit built by the port's frontend (for the port) and by
+    the JAX package's (for the JAX prover): the same R1CS and witness."""
+    port = _toy_circuit(r1cs, poseidon_gadget)
+    jax_side = _toy_circuit(jax_r1cs, jax_poseidon_gadget)
+    assert port[1] == jax_side[1] and port[0].n_constraints == jax_side[0].n_constraints
+    return port, jax_side
 
 
 _KEYS = {}
@@ -53,10 +60,10 @@ _KEYS = {}
 def _keys(toy, basis):
     """(port key, JAX key, JAX proof) per basis, made once per module."""
     if basis not in _KEYS:
-        r1cs, wit = toy
-        pk_jax = jax_setup_device(r1cs, seed="devtest", h_basis=basis)
-        proof_jax = jax_prove(pk_jax, r1cs, wit, seed="p1")
-        pk = setup_device(r1cs, "cpu", seed="devtest", h_basis=basis)
+        (r1cs_port, _), (r1cs_jax, wit) = toy
+        pk_jax = jax_setup_device(r1cs_jax, seed="devtest", h_basis=basis)
+        proof_jax = jax_prove(pk_jax, r1cs_jax, wit, seed="p1")
+        pk = setup_device(r1cs_port, "cpu", seed="devtest", h_basis=basis)
         _KEYS[basis] = (pk, pk_jax, proof_jax)
     return _KEYS[basis]
 
@@ -82,7 +89,7 @@ def check_setup_matches_jax(toy, basis):
 def check_proof_matches_jax(toy, basis, from_jax_key: bool):
     """The port's proof equals JAX's and verifies; with from_jax_key the
     port proves with the JAX key carried over by proving_key_from_jax."""
-    r1cs, wit = toy
+    r1cs, wit = toy[0]
     pk, pk_jax, proof_jax = _keys(toy, basis)
     if from_jax_key:
         pk = proving_key_from_jax(pk_jax, "cpu")

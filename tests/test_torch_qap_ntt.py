@@ -18,7 +18,7 @@ from zkpoa_tpu.ops import qap_eval as JQ
 from zkpoa_tpu.ops.limbs import BN254_FR as JFR
 from zkpoa_tpu.ops.ntt_blocked import quotient_blocked
 from zkpoa_tpu_torch import host
-from zkpoa_tpu_torch.models.pack import PackedMatrix, PackedR1CS
+from zkpoa_tpu_torch.models.r1cs import PackedMatrix, PackedR1CS
 from zkpoa_tpu_torch.ops import ntt as N
 from zkpoa_tpu_torch.ops import qap_eval as Q
 from zkpoa_tpu_torch.ops.limbs import BN254_FR

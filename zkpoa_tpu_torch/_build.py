@@ -54,6 +54,8 @@ SIGNATURES = {
     "zk_msm_accum": [_I, _P, _P, _P, _L, _L, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     # msm_reduce.cu
     "zk_msm_reduce": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # fixed_base.cu: (group, tx, ty, tvalid, scalars, nwin, n, ox, oy, oz, stream)
+    "zk_fixed_base": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
 }
 
 

@@ -14,7 +14,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from zkpoa_tpu.fields.bn254 import FR_GENERATOR, R, TWO_ADICITY
+from .fields.bn254 import FR_GENERATOR, R, TWO_ADICITY
 
 LIMB_BITS = 32
 N_LIMBS = 8  # 8 x 32-bit limbs per 256-bit field element

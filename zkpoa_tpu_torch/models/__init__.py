@@ -1,1 +1,1 @@
-"""Circuit-side helpers of the port (the circuit frontend itself is shared)."""
+"""The port's copy of the circuit frontend (R1CS builder, layer circuits, gadgets)."""

@@ -262,11 +262,10 @@ def fixed_base_table(curve_name: str, base, host_add, n_bits: int):
     return _FB_HOST[key]
 
 
-def fixed_base_mul_batch(ops, base, host_add, scalars: torch.Tensor, n_bits: int) -> Jac:
-    """[k_i * base] for plain-limb scalars [N, 8] below 2^n_bits:
-    ceil(n_bits / FB_WINDOW) mixed adds of table gathers instead of n_bits
-    double-and-adds (port of `curve_jax.py:351` `fixed_base_mul_batch`)."""
-    device = scalars.device
+def fixed_base_device_table(ops, base, host_add, n_bits: int, device):
+    """The fixed-base table of `base` as Montgomery tensors on `device`
+    (xs, ys [nwin, 2^w, *coord], valid [nwin, 2^w]), encoded once per
+    process and device."""
     dkey = (ops.name, str(base), n_bits, str(device))
     if dkey not in _FB_DEV:
         xs, ys, valid = fixed_base_table(ops.name, base, host_add, n_bits)
@@ -274,22 +273,36 @@ def fixed_base_mul_batch(ops, base, host_add, scalars: torch.Tensor, n_bits: int
         spec = ops.field
         enc = lambda a: spec.to_mont(torch.from_numpy(a).to(device)).reshape(shape)  # noqa: E731
         _FB_DEV[dkey] = (enc(xs), enc(ys), torch.from_numpy(valid).to(device))
-    xs_t, ys_t, valid_t = _FB_DEV[dkey]
-    return _fb_fold(ops, xs_t, ys_t, valid_t, scalars, n_bits)
+    return _FB_DEV[dkey]
 
 
-def _fb_fold(ops, xs_t, ys_t, valid_t, scalars: torch.Tensor, n_bits: int) -> Jac:
-    """Port of `curve_jax.py:445` `_fb_fold`: acc += table[j][digit_j]."""
+def fixed_base_mul_batch(ops, base, host_add, scalars: torch.Tensor, n_bits: int) -> Jac:
+    """[k_i * base] for plain-limb scalars [N, 8] below 2^n_bits:
+    ceil(n_bits / FB_WINDOW) mixed adds of table entries instead of n_bits
+    double-and-adds (port of `curve_jax.py:351` `fixed_base_mul_batch` and
+    `:369` `fixed_base_mul_batch_pallas`). CUDA scalars launch kernel B8
+    (csrc/fixed_base.cu); CPU scalars take the plain version."""
+    xs_t, ys_t, valid_t = fixed_base_device_table(ops, base, host_add, n_bits, scalars.device)
+    if scalars.is_cuda:
+        nwin = (n_bits + FB_WINDOW - 1) // FB_WINDOW
+        return FK.fixed_base(ops.group, xs_t, ys_t, valid_t, scalars, nwin)
+    return fixed_base_plain(ops, xs_t, ys_t, valid_t, scalars, n_bits)
+
+
+def fixed_base_plain(ops, xs_t, ys_t, valid_t, scalars: torch.Tensor, n_bits: int) -> Jac:
+    """Plain version of B8 (port of `curve_jax.py:445` `_fb_fold`):
+    acc += table[j][digit_j] by the plain mixed-add formula, window by
+    window, in int64 throughout; runs on any device and launches nothing."""
     w = FB_WINDOW  # divides 32, so a digit never straddles two limbs
     nwin = (n_bits + w - 1) // w
-    n = scalars.shape[0]
+    ar = ops.arith(scalars.device)
     sc = L.u32(scalars)
-    acc = ops.infinity((n,), scalars.device)
+    acc = tuple(L.u32(t) for t in ops.infinity((scalars.shape[0],), scalars.device))
     for j in range(nwin):
         limb, sh = divmod(j * w, 32)
         idx = (sc[:, limb] >> sh) & ((1 << w) - 1)
-        acc = ops.add_affine(acc, xs_t[j][idx], ys_t[j][idx], valid_t[j][idx])
-    return acc
+        acc = jac_add_affine(ar, acc, L.u32(xs_t[j][idx]), L.u32(ys_t[j][idx]), valid_t[j][idx])
+    return tuple(L.to_i32(t) for t in acc)
 
 
 BN254_G1 = CurveOps()

@@ -2,14 +2,16 @@
 
 Port of `zkpoa_tpu/ops/pallas_field.py`: kernel B1 (the Montgomery product
 with its add/sub helpers) and B2-B4 (mixed add, full add, double), for G1
-and, unlike the TPU package, for G2 too.
+and, unlike the TPU package, for G2 too; and of B8, fixed-base
+multiplication (`zkpoa_tpu/ops/curve_jax.py:369`, csrc/fixed_base.cu).
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, launches on the current stream, raises if the
 launch returned a CUDA error, and counts the launch in `_build.COUNTS`.
 They take CUDA tensors only: the routing to the plain versions
 (`limbs.*_plain`, `curve.jac_*`, `fp2` formulas) for CPU tensors lives in
-the callers, `limbs.mont_mul` and the curve classes.
+the callers, `limbs.mont_mul`, the curve classes and
+`curve.fixed_base_mul_batch`.
 """
 
 from __future__ import annotations
@@ -128,5 +130,32 @@ def point_double(group: int, p: Jac) -> Jac:
     _build.launch(
         "zk_point_double", f"point_double_g{group}", group,
         *[t.data_ptr() for t in args], *[t.data_ptr() for t in out], _numel(batch),
+    )
+    return out
+
+
+def fixed_base(group: int, xs_t, ys_t, valid_t, scalars: torch.Tensor, nwin: int) -> Jac:
+    """k_i * base for plain-limb scalars [N, 8], folding the first `nwin`
+    rows of a fixed-base table (xs_t, ys_t [rows, 256, *coord], valid_t
+    [rows, 256]) in one launch (kernel B8)."""
+    _check(scalars, "scalars")
+    if scalars.dim() != 2:
+        raise ValueError(f"scalars: expected [N, 8], got {tuple(scalars.shape)}")
+    rows = xs_t.shape[0]
+    if not 0 < nwin <= min(rows, 32):
+        raise ValueError(f"nwin {nwin} outside 1..{min(rows, 32)}")
+    table = _prep(group, [xs_t, ys_t], (rows, 256))
+    if (not valid_t.is_cuda or valid_t.dtype != torch.bool
+            or tuple(valid_t.shape) != (rows, 256) or not valid_t.is_contiguous()):
+        raise ValueError("valid_t: expected a contiguous CUDA bool tensor [rows, 256]")
+    if xs_t.device != scalars.device:
+        raise ValueError("scalars and table must lie on one device")
+    sc = scalars.contiguous()
+    n = sc.shape[0]
+    out = _empty3(group, (n,), sc.device)
+    _build.launch(
+        "zk_fixed_base", f"fixed_base_g{group}", group,
+        table[0].data_ptr(), table[1].data_ptr(), valid_t.data_ptr(), sc.data_ptr(), nwin, n,
+        *[t.data_ptr() for t in out],
     )
     return out

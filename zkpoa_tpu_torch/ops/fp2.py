@@ -15,8 +15,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from zkpoa_tpu.fields import bn254
-
+from ..fields import bn254
 from . import field_kernels as FK
 from . import limbs as L
 from .curve import Arith, Jac, _CurveBase

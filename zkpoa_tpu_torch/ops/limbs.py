@@ -26,9 +26,8 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
-from zkpoa_tpu.fields import bn254 as _bn254
-
 from .. import host
+from ..fields import bn254 as _bn254
 
 N_LIMBS = 8
 MASK16 = 0xFFFF
@@ -177,19 +176,31 @@ def _split16(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([v & MASK16, v >> 16], dim=-1).flatten(-2)
 
 
+def _diag_matrix(device) -> torch.Tensor:
+    """[256, 31] 0/1 float64: entry (16 i + j, i + j) is 1."""
+    def make():
+        m = torch.zeros(256, 31, dtype=torch.float64)
+        ij = torch.arange(256)
+        m[ij, ij // 16 + ij % 16] = 1
+        return m
+    return _const("diag16", device, make)
+
+
 def _colsum(x16: torch.Tensor, y16: torch.Tensor) -> torch.Tensor:
     """Column sums of the 16 x 16 half-limb product: [..., 31], each < 2^36.
-    Padding each row to 32 and re-reading the rows at width 31 shifts row i
-    right by i, so one sum over the rows adds the anti-diagonals."""
-    outer = x16.unsqueeze(-1) * y16.unsqueeze(-2)
-    pad = torch.nn.functional.pad(outer, (0, 16)).flatten(-2)[..., :496]
-    return pad.unflatten(-1, (16, 31)).sum(-2)
+    The outer product times a 0/1 matrix that adds its anti-diagonals, in
+    float64: every product is below 2^32 and every sum below 2^36, far
+    inside float64's exact integers (2^53), so the result is exact."""
+    outer = (x16.to(torch.float64).unsqueeze(-1) * y16.to(torch.float64).unsqueeze(-2))
+    return (outer.flatten(-2) @ _diag_matrix(x16.device)).to(torch.int64)
 
 
-def _norm16(t: torch.Tensor, passes: int) -> torch.Tensor:
-    """Exact 16-bit normalisation of non-negative positions (< 2^(16 + 5
-    passes)); the carry out of the top position is dropped."""
-    for _ in range(passes):
+def _norm16(t: torch.Tensor) -> torch.Tensor:
+    """Exact 16-bit normalisation of non-negative positions below 2^47.
+    Two carry-save passes leave each position below 2^16 + 2^(47-32), so
+    its carry out is one bit and a carry-lookahead resolves the rest; the
+    top position's carry is dropped."""
+    for _ in range(2):
         hi = t >> 16
         t = t & MASK16
         t[..., 1:] += hi[..., :-1]
@@ -225,10 +236,10 @@ class Plain64:
         """Montgomery product by whole-width REDC over 16-bit halves:
         T = a*b, m = (T mod 2^256)(-p^-1) mod 2^256, (T + m p) / 2^256 < 2p,
         then one conditional subtract."""
-        t = _colsum(_split16(a), _split16(b))
-        m = _norm16(_colsum(_norm16(t[..., :16], 3), self.np16)[..., :16], 3)
-        u = torch.nn.functional.pad(t + _colsum(m, self.p16), (0, 2))
-        u = _norm16(u, 3)[..., 16:32]  # low half is 0 mod 2^256; value < 2p
+        t = _colsum(_split16(a), _split16(b))  # positions < 2^36
+        m = _norm16(_colsum(_norm16(t[..., :16]), self.np16)[..., :16])
+        u = torch.nn.functional.pad(t + _colsum(m, self.p16), (0, 2))  # < 2^37
+        u = _norm16(u)[..., 16:32]  # low half is 0 mod 2^256; value < 2p
         return _cond_sub(u[..., 0::2] | (u[..., 1::2] << 16), self.p)
 
 

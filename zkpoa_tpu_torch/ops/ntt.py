@@ -18,8 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from zkpoa_tpu.fields.bn254 import FR_GENERATOR, R
-
+from ..fields.bn254 import FR_GENERATOR, R
 from ..host import domain_root, snarkjs_coset_shift
 from . import limbs as L
 from .limbs import BN254_FR

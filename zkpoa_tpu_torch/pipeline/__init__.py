@@ -1,1 +1,1 @@
-"""Input preparation of the port."""
+"""Input preparation and the three-layer workflow of the port."""

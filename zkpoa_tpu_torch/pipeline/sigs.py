@@ -11,10 +11,9 @@ import json
 from dataclasses import dataclass
 from typing import List
 
-from zkpoa_tpu.fields import secp256k1
-from zkpoa_tpu.utils import serde
-
+from ..fields import secp256k1
 from ..host import eth_address
+from ..utils import serde
 
 
 @dataclass

@@ -5,12 +5,13 @@
     python -m zkpoa_tpu_torch.prover verify vkey.json proof.json public.json
 
 Port of `zkpoa_tpu/prover/__main__.py` with the same flags, plus `--device`
-(where the key and the proving run live; nothing is chosen implicitly) and
-`--repeat` (prove N times against the one key, to time cold and warm
-proofs). The key is made by the development setup on the device each run:
-the `.dpk` disk cache is not ported yet. `prove` self-verifies every proof
-with the host pairing check and writes proof.json, public.json, the vkey
-and stats.json (phase times and the constraint count).
+(where the key and the proving run live: `cuda` unless `cpu` is asked for)
+and `--repeat` (prove N times against the one key, to time cold and warm
+proofs). The key is made by the development setup on the device each run.
+Circuits come from the port's own frontend (`models/layers.py`). `prove`
+self-verifies every proof with the host pairing check and writes
+proof.json, public.json, the vkey and stats.json (phase times and the
+constraint count).
 """
 
 from __future__ import annotations
@@ -28,9 +29,8 @@ def _log(msg: str) -> None:
 
 def _build_circuit(layer: str, d: dict, recursive: bool):
     """Circuit + name from a reference-shaped input JSON (same circuits as
-    `zkpoa_tpu/prover/__main__.py:36` `_build_circuit`; the circuit
-    frontend is shared)."""
-    from zkpoa_tpu.models.layers import (
+    `zkpoa_tpu/prover/__main__.py:36` `_build_circuit`)."""
+    from ..models.layers import (
         LayerOneInput,
         LayerTwoInput,
         layer_one_circuit,
@@ -47,7 +47,7 @@ def _build_circuit(layer: str, d: dict, recursive: bool):
         height = len(d["path_elements"][0]) + 1
         inner_vk, suffix = None, ""
         if recursive:
-            from zkpoa_tpu.models.gadgets.pairing_gadget import PreparedVK
+            from ..models.gadgets.pairing_gadget import PreparedVK
 
             inner_vk, suffix = PreparedVK.from_sanitized(d), "_recursive"
         c = layer_two_circuit(inp, tree_height=height, inner_vk=inner_vk)
@@ -56,7 +56,7 @@ def _build_circuit(layer: str, d: dict, recursive: bool):
         balances = [int(x) for x in d["balances"]]
         inner, suffix = [], ""
         if recursive:
-            from zkpoa_tpu.models.gadgets.pairing_gadget import PreparedVK
+            from ..models.gadgets.pairing_gadget import PreparedVK
 
             shared = {k: d[k] for k in ("gamma2", "delta2", "negalfa1xbeta2", "IC")}
             pvk = PreparedVK.from_sanitized(shared)
@@ -105,7 +105,7 @@ def _cmd_setup(args) -> int:
 
 
 def _cmd_prove(args) -> int:
-    from zkpoa_tpu.prover import groth16
+    from . import groth16
 
     from .prove import _sync, prove
 
@@ -141,7 +141,7 @@ def _cmd_prove(args) -> int:
 
 
 def _cmd_verify(args) -> int:
-    from zkpoa_tpu.prover.groth16 import verify_files
+    from .groth16 import verify_files
 
     ok = verify_files(args.vkey, args.proof, args.public)
     print("OK" if ok else "INVALID")
@@ -156,7 +156,8 @@ def main(argv=None) -> int:
         p = sub.add_parser(cmd)
         p.add_argument("--layer", choices=("one", "two", "three"), required=True)
         p.add_argument("--input", required=True, help="reference-shaped layer input JSON")
-        p.add_argument("--device", required=True, help="torch device, e.g. cuda or cpu")
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; cpu for small circuits)")
         p.add_argument("--seed", default="zkpoa-test-srs", help="dev-setup seed")
         p.add_argument("--recursive", action="store_true",
                        help="verify the embedded lower-layer proof in-snark")

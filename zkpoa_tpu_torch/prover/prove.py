@@ -17,19 +17,17 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from zkpoa_tpu.fields import bn254
-from zkpoa_tpu.fields.bn254 import R
-from zkpoa_tpu.models.r1cs import R1CS
-from zkpoa_tpu.prover.groth16 import Proof
-
 from .. import host
-from ..models.pack import pack
+from ..fields import bn254
+from ..fields.bn254 import R
+from ..models.r1cs import R1CS
 from ..ops import msm as M
 from ..ops.curve import BN254_G1
 from ..ops.fp2 import BN254_G2
 from ..ops.limbs import BN254_FR
 from ..ops.ntt import coset_qap_evals, quotient
 from ..ops.qap_eval import eval_matrices_device
+from .groth16 import Proof
 from .setup import ProvingKey
 
 
@@ -49,7 +47,7 @@ def _prove_device(pk: ProvingKey, r1cs: R1CS, witness: Sequence[int], r: int, s:
 
     w_dev = torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in witness])).to(device)
     phase("witness upload")
-    a_p, b_p, c_p = eval_matrices_device(pack(r1cs), w_dev, pk.domain_size)
+    a_p, b_p, c_p = eval_matrices_device(r1cs.pack(), w_dev, pk.domain_size)
     phase("QAP SpMV")
     a_m, b_m, c_m = (spec.to_mont(v) for v in (a_p, b_p, c_p))
     if pk.h_basis == "monomial":

@@ -17,19 +17,17 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from zkpoa_tpu.fields import bn254
-from zkpoa_tpu.fields.bn254 import R
-from zkpoa_tpu.models.r1cs import R1CS
-from zkpoa_tpu.prover.groth16 import VerifyingKey
-
 from .. import host
-from ..models.pack import pack
+from ..fields import bn254
+from ..fields.bn254 import R
+from ..models.r1cs import R1CS
 from ..ops import limbs as L
 from ..ops.curve import BN254_G1, fixed_base_mul_batch, jac_to_affine_mont
 from ..ops.fp2 import BN254_G2, g2_jac_to_affine_mont
 from ..ops.limbs import BN254_FR
 from ..ops.ntt import pow_table
 from ..ops.qap_eval import eval_at_tau_device
+from .groth16 import VerifyingKey
 
 SETUP_CHUNK = 1 << 20  # fixed-base scalars per batch (bounds scratch memory)
 
@@ -114,7 +112,7 @@ def _setup_scalars_device(r1cs: R1CS, seed: str, h_basis: str, device):
     )
     m = _domain(r1cs.n_constraints)
     lag_m, z_tau = _lagrange_at_tau_device(m, tau, device)
-    a_t, b_t, c_t = eval_at_tau_device(pack(r1cs), spec.from_mont(lag_m), r1cs.n_wires)
+    a_t, b_t, c_t = eval_at_tau_device(r1cs.pack(), spec.from_mont(lag_m), r1cs.n_wires)
 
     gamma_inv = pow(gamma, -1, R)
     delta_inv = pow(delta, -1, R)
