@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of zkpoa_tpu_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain torch version, prove layer one end to end, run
-the three-layer workflow in full mode and build a 2^20-leaf Merkle tree.
+the three-layer workflow in full mode, run the MSM stage harness at 2^20
+and build a 2^20-leaf Merkle tree.
 
     python3 chip_smoke.py
 
@@ -19,8 +20,8 @@ Phases, each printing a line:
      multiplication, and the B2-loop route, 32 launches of B2, timed beside
      it); accumulation and reduction of a G1 MSM at 2^16 and a G2 MSM at
      2^14, both at the main path's window size (24 windows of 1024
-     buckets); a G1 MSM at 2^20 checked exactly (P_i = g_i G, so the result
-     is (sum s_i g_i mod r) G) and the same check for the 2^16 and 2^14 MSMs;
+     buckets), each MSM's total checked exactly (P_i = g_i G, so the result
+     is (sum s_i g_i mod r) G);
   4. main path, layer one: parse build/recursive_run/sigs.json, then the
      prover CLI `prove --layer one --repeat 2` (circuit build, setup_device,
      two proofs against the one key, each verified by the host pairing
@@ -31,14 +32,25 @@ Phases, each printing a line:
      height 5, blinding factor 0xB11DD1E5), in process through `main`; the
      Merkle root, balance sum 657 and the 13 layer-three public values must
      equal the recorded run's, every proof.json written must verify, and
-     B8 must have run in its setups. The launch counts of phases 4 and 5
-     (each reset just before it) must together be non-zero for every
-     kernel;
+     B8 must have run in its setups;
   6. setup A/B: setup_device of the workflow's three layer circuits with B8
      and with the B2-loop route, in turns B2, B8, B8, B2;
-  7. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
+  7. MSM stages: the harness's CLI, `python -m
+     zkpoa_tpu_torch.experiments.msm_stages 20 c`, in process through
+     `main`, for c = 11 (the main path's window) and c = 13 (the JAX
+     harness's): every stage of a G1 MSM over 2^20 points P_i = g_i G
+     timed, the gather kernels E1-E3 raced against index_select, the MSM
+     total exact; its JSON goes to build/chip_smoke/msm_stages.json. Then
+     E1-E3 against the plain version (exact equality) at the harness's
+     shapes, each with its bound (bytes M W 4 written, 4 M of indices and
+     D W 4 read for the D distinct rows indexed) and the index_select time
+     (the plain version is index_select, so its time is also the library
+     time). The c = 11 run's whole-MSM stage is the G1 MSM at 2^20 in
+     Mpoints/s. The launch counts of phases 4, 5 and 7 (each reset just
+     before it) must together be non-zero for every kernel;
+  8. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
      4 random leaves and their proofs checked with the host Poseidon;
-  8. profile: one more layer-one key and three proofs, the last under
+  9. profile: one more layer-one key and three proofs, the last under
      torch.profiler; prints its wall time, the device's busy time as the
      union of kernel, memcpy and memset intervals, the idle share, the phase
      ends, the kernels by device time and the peak device memory. The
@@ -47,6 +59,7 @@ The second-to-last line is a JSON object listing every kernel; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -61,6 +74,7 @@ RUN2 = os.path.join(REPO, "build", "recursive_run2")  # the workflow's inputs an
 GOLDEN = os.path.join(RUN2, "2_sigs_2_batches_5_height")
 BLIND = "0xB11DD1E5"
 LAYER_ONE_WIRES = 1_378_647  # witness length of layer one at 1 sig: the MSM plans' size
+MSM_STAGES_LOG_N = 20  # the MSM stage harness's size, its default
 T0 = time.time()
 
 
@@ -73,7 +87,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-# kernel name -> (source, TPU kernel it replaces)
+# kernel name -> (source, TPU kernel it replaces); each is launched by one
+# of the phases that drive a path: layer one, the workflow, the MSM stages
 KERNELS = {
     "field_mont_mul": ("csrc/field_ops.cu", "zkpoa_tpu/ops/pallas_field.py:297"),
     "field_add_mod": ("csrc/field_ops.cu", "zkpoa_tpu/ops/pallas_field.py:297"),
@@ -90,6 +105,9 @@ KERNELS = {
     "msm_reduce_g2": ("csrc/msm_reduce.cu", "zkpoa_tpu/ops/msm_pallas.py:666"),
     "fixed_base_g1": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
     "fixed_base_g2": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
+    "gather_smem_rows": ("csrc/gather.cu", "experiments/msm_stages.py:91"),
+    "gather_smem_vec": ("csrc/gather.cu", "experiments/msm_stages.py:110"),
+    "gather_async": ("csrc/gather.cu", "experiments/msm_stages.py:150"),
 }
 
 # The bound of a kernel is the larger of its bytes over the memory rate and
@@ -149,15 +167,20 @@ class Checks:
         self.torch = torch
         self.rows = {}
 
-    def record(self, name, got, want, fn_kernel, fn_plain, work, reps=20, plain_reps=1):
-        """work = (bytes, int32 operations) of one call, for its bound."""
+    def record(self, name, got, want, fn_kernel, fn_plain, work, reps=20, plain_reps=1,
+               plain_is_library=False):
+        """work = (bytes, int32 operations) of one call, for its bound;
+        plain_is_library: fn_plain is one PyTorch call computing the same
+        function, so its time is also the library time (else there is none)."""
         err = max_abs_err(self.torch, got, want)
         ms = time_ms(self.torch, fn_kernel, reps)
         plain_ms = time_ms(self.torch, fn_plain, plain_reps)
+        library_ms = plain_ms if plain_is_library else None
         bound_ms, bound_by = bound(*work)
         self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"{name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        log(f"{name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} B, {work[1]:.4g} int32 ops)")
         if err != 0:
             fail(f"{name}: kernel disagrees with its plain version")
@@ -305,24 +328,11 @@ def check_fixed_base(torch, checks):
     return out
 
 
-def _fixed_base_points(torch, curve, base, host_add, gens):
-    """Affine device table of g_i * base for 63-bit g_i (kernel path)."""
-    from zkpoa_tpu_torch import host
-    from zkpoa_tpu_torch.ops.curve import fixed_base_mul_batch, jac_to_affine_mont
-    from zkpoa_tpu_torch.ops.fp2 import g2_jac_to_affine_mont
-    from zkpoa_tpu_torch.prover.setup import DeviceG1Points, DeviceG2Points
-
-    sc = torch.from_numpy(host.scalars_to_limbs_fast(gens)).to("cuda")
-    jac = fixed_base_mul_batch(curve, base, host_add, sc, 64)
-    if curve.group == 1:
-        return DeviceG1Points(*jac_to_affine_mont(curve.field, jac))
-    return DeviceG2Points(*g2_jac_to_affine_mont(jac))
-
-
 def check_msm(torch, checks, gen):
     import numpy as np
 
     from zkpoa_tpu_torch import host
+    from zkpoa_tpu_torch.experiments.msm_stages import fixed_base_points
     from zkpoa_tpu_torch.fields import bn254
     from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.ops.curve import BN254_G1
@@ -337,7 +347,7 @@ def check_msm(torch, checks, gen):
         n = 1 << log_n
         g = curve.group
         gens = [int(x) for x in rng.integers(1, 2**63, size=n, dtype=np.uint64)]
-        table = _fixed_base_points(torch, curve, base, add, gens)
+        table = fixed_base_points(curve, base, add, gens, "cuda")
         scal = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
         sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
         plan = M.plan_msm(sc, c, split_heavy=False)
@@ -361,29 +371,6 @@ def check_msm(torch, checks, gen):
         if got != want:
             fail(f"G{g} MSM at 2^{log_n} is wrong")
         log(f"G{g} MSM at 2^{log_n} (c={c}: {plan.nw} windows of {plan.nb} buckets): exact")
-
-    # the headline G1 MSM at 2^20, bench.py's exact check
-    n = 1 << 20
-    gens = [int(x) for x in rng.integers(1, 2**63, size=n, dtype=np.uint64)]
-    table = _fixed_base_points(torch, BN254_G1, bn254.G1_GEN, bn254.g1_add, gens)
-    scal = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
-    sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
-    run = lambda: M.msm(BN254_G1, table, sc, bn254.g1_add, bn254.g1_mul)  # noqa: E731
-    got = run()
-    want = bn254.g1_mul(bn254.G1_GEN, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
-    if got != want:
-        fail("G1 MSM at 2^20 is wrong")
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    best = min(times)
-    log(f"G1 MSM at 2^20 (c={M.auto_c(n)}, plan included): exact; "
-        f"{best * 1e3:.1f} ms -> {n / best / 1e6:.3f} Mpoints/s (runs {times})")
-    return {"g1_msm_2p20_s": best, "g1_msm_2p20_mpoints_s": n / best / 1e6}
 
 
 def main_path(torch):
@@ -519,8 +506,70 @@ def setup_ab(torch, bdir):
     return out
 
 
+def msm_stages_path(torch, checks):
+    """Phase 7: the MSM stage harness's CLI at 2^20 for c = 11 and 13, the
+    launch counts of both runs; then E1-E3 against the plain version at the
+    harness's shapes."""
+    import numpy as np
+
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.experiments import msm_stages as H
+    from zkpoa_tpu_torch.ops import gather as G
+    from zkpoa_tpu_torch.ops import msm as M
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.reset_counts()
+        for c in (M.auto_c(LAYER_ONE_WIRES), 13):
+            path = os.path.join(tmp, f"c{c}.json")
+            # its stdout repeats the --out JSON; this script's stdout ends in the contract lines
+            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+                rc = H.main([str(MSM_STAGES_LOG_N), str(c), "--device", "cuda", "--out", path])
+            if rc != 0:
+                fail(f"msm_stages at c = {c} exited {rc}")
+            with open(path) as f:
+                runs[f"c{c}"] = json.load(f)
+        torch.cuda.synchronize()
+        counts = dict(_build.COUNTS)
+    with open(os.path.join(OUT_DIR, "msm_stages.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    summary = {}
+    for name, res in runs.items():
+        if not res["msm"]["exact"]:
+            fail(f"msm_stages {name}: the MSM total is wrong")
+        summary[name] = {k: v["best_s"] for k, v in res.items()
+                         if isinstance(v, dict) and "best_s" in v}
+        log(f"msm_stages 2^{MSM_STAGES_LOG_N} {name} (occupancy {res['occupancy']}), best ms: "
+            + ", ".join(f"{k} {t * 1e3:.4f}" for k, t in summary[name].items()) + "; MSM exact")
+    log(f"launches in the msm_stages phase: {json.dumps(counts, sort_keys=True)}")
+    # the headline G1 MSM at 2^20 (bench.py's metric and exact check) at the main path's window
+    best = summary[f"c{M.auto_c(LAYER_ONE_WIRES)}"]["msm"]
+    msm = {"g1_msm_2p20_s": best, "g1_msm_2p20_mpoints_s": (1 << MSM_STAGES_LOG_N) / best / 1e6}
+    log(f"G1 MSM at 2^{MSM_STAGES_LOG_N} (plan included): exact; {best * 1e3:.2f} ms -> "
+        f"{msm['g1_msm_2p20_mpoints_s']:.3f} Mpoints/s")
+
+    # E1-E3 against the plain version on random rows at the harness's shapes;
+    # E3 at the MSM's shape first, the row the kernels line reports
+    n = 1 << MSM_STAGES_LOG_N
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    xy = torch.randint(-(2**31), 2**31, (n, 16), generator=gen, dtype=torch.int64,
+                       device="cuda").to(torch.int32)
+    visit = torch.randint(0, n, (n,), generator=gen, device="cuda").to(torch.int32)
+    cases = H.gather_cases(xy, visit, np.random.default_rng(1))
+    cases.sort(key=lambda case: case[0] != "g_dma_msm")
+    for stage, fn, tab, idx in cases:
+        m, w = idx.shape[0], tab.shape[1]
+        distinct = torch.unique(idx).numel()  # rows the gather must read at least once
+        checks.record(f"{fn.__name__}[{stage}]", fn(tab, idx), G.gather_rows_plain(tab, idx),
+                      lambda: fn(tab, idx), lambda: G.gather_rows_plain(tab, idx),
+                      (m * w * 4 + 4 * m + distinct * w * 4, 0), plain_reps=20,
+                      plain_is_library=True)  # the plain version is index_select
+    return summary, counts, msm
+
+
 def merkle_2p20(torch):
-    """Phase 7: a Merkle tree over 2^20 leaves (height 21); 4 sampled leaves
+    """Phase 8: a Merkle tree over 2^20 leaves (height 21); 4 sampled leaves
     and proofs against the host Poseidon."""
     import numpy as np
 
@@ -676,21 +725,24 @@ def main() -> int:
     check_field(torch, checks, gen)
     check_points(torch, checks, gen)
     fb_stats = check_fixed_base(torch, checks)
-    msm_stats = check_msm(torch, checks, gen)
+    check_msm(torch, checks, gen)
     stats, counts_l1 = main_path(torch)
     with tempfile.TemporaryDirectory() as tmp:
         wf, counts_wf, bdir = workflow_path(torch, tmp)
         ab = setup_ab(torch, bdir)
-    counts = {k: counts_l1.get(k, 0) + counts_wf.get(k, 0) for k in set(counts_l1) | set(counts_wf)}
+    stages, counts_ms, msm_stats = msm_stages_path(torch, checks)
+    counts = {k: counts_l1.get(k, 0) + counts_wf.get(k, 0) + counts_ms.get(k, 0)
+              for k in set(counts_l1) | set(counts_wf) | set(counts_ms)}
     missing = [k for k in KERNELS if counts.get(k, 0) == 0]
     if missing:
-        fail(f"kernels not launched by the layer-one and workflow phases: {missing}")
+        fail(f"kernels not launched by the layer-one, workflow and msm_stages phases: {missing}")
     merkle = merkle_2p20(torch)
     prof = profile_prove(torch)
     with open(os.path.join(OUT_DIR, "stats.json"), "w") as f:
         json.dump({"main_path": stats, "launches": counts, "launches_layer_one": counts_l1,
-                   "launches_workflow": counts_wf, "kernels": checks.rows, "fixed_base": fb_stats,
-                   "msm": msm_stats, "workflow": wf, "setup_ab": ab, "merkle": merkle,
+                   "launches_workflow": counts_wf, "launches_msm_stages": counts_ms,
+                   "kernels": checks.rows, "fixed_base": fb_stats, "msm": msm_stats,
+                   "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,
                    "profile": prof, "device": name, "smi": smi}, f, indent=1)
 
     kernels = []
@@ -702,7 +754,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
             "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
-            "library_ms": None,  # no PyTorch call computes any of these functions
+            "library_ms": rows[0]["library_ms"],  # None where no PyTorch call computes it
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

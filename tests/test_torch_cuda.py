@@ -21,6 +21,7 @@ from zkpoa_tpu_torch.merkle.tree import MerkleTree
 from zkpoa_tpu_torch.models.gadgets.poseidon_gadget import poseidon
 from zkpoa_tpu_torch.models.r1cs import Circuit
 from zkpoa_tpu_torch.ops import field_kernels as FK
+from zkpoa_tpu_torch.ops import gather as G
 from zkpoa_tpu_torch.ops import limbs as L
 from zkpoa_tpu_torch.ops import msm as M
 from zkpoa_tpu_torch.ops.curve import (BN254_G1, fixed_base_device_table, fixed_base_mul_batch,
@@ -190,3 +191,45 @@ def test_merkle_tree_on_card_equals_cpu(card):
     assert t_gpu.root() == t_cpu.root()
     for i in (0, 57, 99, 127):
         assert t_gpu.prove(i) == t_cpu.prove(i)
+
+
+GATHERS = {"gather_smem_rows": G.gather_smem_rows, "gather_smem_vec": G.gather_smem_vec,
+           "gather_async": G.gather_async}
+
+
+@pytest.mark.parametrize("m", [0, 1, 7, 8, 1000])
+@pytest.mark.parametrize("w", [8, 16, 128])
+@pytest.mark.parametrize("kind", list(GATHERS))
+def test_gather_kernels_match_index_select(card, kind, w, m):
+    """E1-E3 on random and sorted indices with repeats: one launch each (none
+    for M = 0), equal to index_select bit for bit. A 300-row table of 512 B
+    rows takes E1/E2 above the 48 KB default of shared memory."""
+    rng = np.random.default_rng(1000 * w + m)
+    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(300, w), dtype=np.int32)).to(card)
+    idx = rng.integers(0, 300, size=m, dtype=np.int32)
+    if m:
+        idx[: m // 2 + 1] = idx[0]  # repeats
+    for order in (idx, np.sort(idx)):
+        t_idx = torch.from_numpy(order.copy()).to(card)
+        _build.reset_counts()
+        got = GATHERS[kind](tab, t_idx)
+        torch.cuda.synchronize()
+        assert _build.COUNTS == ({kind: 1} if m else {})
+        assert tuple(got.shape) == (m, w) and got.is_cuda
+        assert torch.equal(got, torch.index_select(tab, 0, t_idx))
+        assert torch.equal(got, G.gather_rows_plain(tab, t_idx))
+
+
+def test_gather_kernels_refuse_what_they_cannot_take(card):
+    """E1/E2 raise on a table above the shared-memory limit (no fallback to
+    index_select); E3 raises on a table that is not 16-byte aligned."""
+    idx = torch.zeros(8, dtype=torch.int32, device=card)
+    big = torch.zeros((4096, 16), dtype=torch.int32, device=card)  # 256 KiB
+    _build.reset_counts()
+    for fn in (G.gather_smem_rows, G.gather_smem_vec):
+        with pytest.raises(ValueError):
+            fn(big, idx)
+    flat = torch.zeros(64 * 16 + 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        G.gather_async(flat[1:].view(64, 16), idx)
+    assert _build.COUNTS == {}

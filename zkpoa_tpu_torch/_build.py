@@ -56,6 +56,10 @@ SIGNATURES = {
     "zk_msm_reduce": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # fixed_base.cu: (group, tx, ty, tvalid, scalars, nwin, n, ox, oy, oz, stream)
     "zk_fixed_base": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
+    # gather.cu: (tab, idx, T, W, M, out, stream)
+    "zk_gather_smem_rows": [_P, _P, _L, _I, _L, _P, _P],
+    "zk_gather_smem_vec": [_P, _P, _L, _I, _L, _P, _P],
+    "zk_gather_async": [_P, _P, _L, _I, _L, _P, _P],
 }
 
 
