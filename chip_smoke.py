@@ -8,7 +8,9 @@ and build a 2^20-leaf Merkle tree.
 
 Phases, each printing a line:
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: nvcc builds csrc/*.cu into build/torch_kernels/;
+  2. build: nvcc builds csrc/*.cu into build/torch_kernels/; the registers
+     and spills of every MSM kernel (B5/B6's piece and combine kernels, B7)
+     from the ptxas log, on a line of their own;
   3. kernels vs plain, exact equality of limbs, with both times and each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its int32
      operations over the card's int32 issue rate):
@@ -18,10 +20,12 @@ Phases, each printing a line:
      scalars with 0, 1, r - 1, r, 2^248, all digits equal and a top-window
      P == Q among them (decoded points checked against host scalar
      multiplication, and the B2-loop route, 32 launches of B2, timed beside
-     it); accumulation and reduction of a G1 MSM at 2^16 and a G2 MSM at
-     2^14, both at the main path's window size (24 windows of 1024
-     buckets), each MSM's total checked exactly (P_i = g_i G, so the result
-     is (sum s_i g_i mod r) G);
+     it); accumulation of a G1 MSM at 2^16 and a G2 MSM at 2^14, both at
+     the main path's window size (24 windows of 1024 buckets), with the
+     plan's piece count and combine depth; reduction as the main path calls
+     it, G1 over four MSMs' buckets (96 windows) in one launch and over one
+     (24), G2 over one; each MSM's total checked exactly (P_i = g_i G, so
+     the result is (sum s_i g_i mod r) G);
   4. main path, layer one: parse build/recursive_run/sigs.json, then the
      prover CLI `prove --layer one --repeat 2` (circuit build, setup_device,
      two proofs against the one key, each verified by the host pairing
@@ -39,8 +43,9 @@ Phases, each printing a line:
      zkpoa_tpu_torch.experiments.msm_stages 20 c`, in process through
      `main`, for c = 11 (the main path's window) and c = 13 (the JAX
      harness's): every stage of a G1 MSM over 2^20 points P_i = g_i G
-     timed, the gather kernels E1-E3 raced against index_select, the MSM
-     total exact; its JSON goes to build/chip_smoke/msm_stages.json. Then
+     timed, its piece count and combine depth, the gather kernels E1-E3
+     raced against index_select, the MSM total exact; its JSON goes to
+     build/chip_smoke/msm_stages.json. Then
      E1-E3 against the plain version (exact equality) at the harness's
      shapes, each with its bound (bytes M W 4 written, 4 M of indices and
      D W 4 read for the D distinct rows indexed) and the index_select time
@@ -53,8 +58,9 @@ Phases, each printing a line:
   9. profile: one more layer-one key and three proofs, the last under
      torch.profiler; prints its wall time, the device's busy time as the
      union of kernel, memcpy and memset intervals, the idle share, the phase
-     ends, the kernels by device time and the peak device memory. The
-     trace goes to build/chip_smoke/prove_trace.json.
+     ends, the kernels by device time, each launch's time of the MSM
+     kernels (B5/B6 pieces and combine, B7) and the peak device memory.
+     The trace goes to build/chip_smoke/prove_trace.json.
 The second-to-last line is a JSON object listing every kernel; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 """
@@ -358,14 +364,30 @@ def check_msm(torch, checks, gen):
         cb = COORD_BYTES[g]
         adds = int(plan.starts[:, -1].sum())  # entries in some bucket: one mixed add each
         lanes = plan.nw * plan.nb
+        piece_bytes = 8 * plan.n_pieces + 4 * (lanes + 1)  # the plan's piece table
         checks.record(f"msm_accum_g{g}", buckets, acc_plain(), acc, acc_plain,
-                      (n * (2 * cb + 1) + 4 * plan.nw * n + 4 * plan.nw * (plan.nb + 1)
-                       + 3 * cb * lanes, adds * PRODUCTS["add_affine"][g] * MONT_OPS), reps=3)
-        red = lambda: M.reduce(curve, buckets, plan.nw, plan.nb)  # noqa: E731
-        red_plain = lambda: M.reduce_plain(curve, buckets, plan.nw, plan.nb)  # noqa: E731
-        checks.record(f"msm_reduce_g{g}", red(), red_plain(), red, red_plain,
-                      (3 * cb * (lanes + plan.nw),
-                       2 * lanes * PRODUCTS["add"][g] * MONT_OPS), reps=5)
+                      (n * (2 * cb + 1) + 4 * plan.nw * n + piece_bytes + 3 * cb * lanes,
+                       adds * PRODUCTS["add_affine"][g] * MONT_OPS), reps=3)
+        log(f"msm_accum_g{g} at 2^{log_n}: {plan.n_pieces} pieces of at most {plan.piece} "
+            f"entries, at most {plan.max_pieces} a bucket; combine {len(plan.combine)} levels, "
+            f"depth {plan.combine_depth} full adds")
+        # B7 as the main path calls it: G1 over the four G1 MSMs of a prove
+        # (4 x 24 windows in one launch), G2 over the one G2 MSM
+        n_msm = 4 if g == 1 else 1
+        parts = [buckets]
+        for _ in range(n_msm - 1):
+            sc_k = torch.from_numpy(host.scalars_to_limbs_fast(
+                [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)])).to("cuda")
+            plan_k = M.plan_msm(sc_k, c, split_heavy=False)
+            parts.append(M.accumulate(curve, table.xs, table.ys, table.valid, 0, plan_k))
+        for m in sorted({n_msm, 1}, reverse=True):
+            bk = tuple(torch.cat([p[k] for p in parts[:m]]) for k in range(3))
+            nw = m * plan.nw
+            red = lambda: M.reduce(curve, bk, nw, plan.nb)  # noqa: E731
+            red_plain = lambda: M.reduce_plain(curve, bk, nw, plan.nb)  # noqa: E731
+            checks.record(f"msm_reduce_g{g}[{nw} windows]", red(), red_plain(), red, red_plain,
+                          (3 * cb * (m * lanes + nw),
+                           2 * m * lanes * PRODUCTS["add"][g] * MONT_OPS), reps=5)
         got = M.msm_shared(curve, table, plan, add, mul)
         want = mul(base, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
         if got != want:
@@ -539,7 +561,10 @@ def msm_stages_path(torch, checks):
             fail(f"msm_stages {name}: the MSM total is wrong")
         summary[name] = {k: v["best_s"] for k, v in res.items()
                          if isinstance(v, dict) and "best_s" in v}
-        log(f"msm_stages 2^{MSM_STAGES_LOG_N} {name} (occupancy {res['occupancy']}), best ms: "
+        log(f"msm_stages 2^{MSM_STAGES_LOG_N} {name} (occupancy {res['occupancy']}, "
+            f"{res['pieces']} pieces of at most {res['piece']} entries, at most "
+            f"{res['max_pieces']} a bucket, combine {res['combine_levels']} levels of depth "
+            f"{res['combine_depth']}), best ms: "
             + ", ".join(f"{k} {t * 1e3:.4f}" for k, t in summary[name].items()) + "; MSM exact")
     log(f"launches in the msm_stages phase: {json.dumps(counts, sort_keys=True)}")
     # the headline G1 MSM at 2^20 (bench.py's metric and exact check) at the main path's window
@@ -662,17 +687,25 @@ def profile_prove(torch):
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    msm_launches = {}  # each launch of the MSM kernels, in order, ms
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        for k in ("msm_piece_kernel", "msm_combine_kernel", "msm_reduce_kernel"):  # B5/B6, B7
+            if k in e["name"]:
+                g = "G2" if "G2Field" in e["name"] else "G1"
+                msm_launches.setdefault(f"{k}<{g}>", []).append(e["dur"] / 1e3)
     log(f"profile: unprofiled warm proves {[round(t, 3) for t in unprofiled]} s; profiled "
         f"prove wall {wall:.3f} s, device busy {busy:.3f} s ({len(dev)} device events), "
         f"idle {100 * (1 - busy / wall):.1f} %; peak device memory {peak / 2**30:.2f} GiB")
     log("profile phase ends: " + "; ".join(p.removeprefix("prove: ") for p in phases))
     for name, (ms, n) in top:
         log(f"profile kernel {ms:9.3f} ms {n:5d}x {name[:110]}")
+    for name, times in msm_launches.items():
+        log(f"profile {name} per launch ms: {[round(t, 3) for t in times]}")
     if not dev:
         fail("the profiled prove shows no device work")
     return {"unprofiled_s": unprofiled, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / wall, "peak_bytes": peak, "phases": phases,
-            "top": [[name, ms, n] for name, (ms, n) in top]}
+            "top": [[name, ms, n] for name, (ms, n) in top], "msm_launches_ms": msm_launches}
 
 
 def ptxas_summary(path: str) -> str:
@@ -688,6 +721,33 @@ def ptxas_summary(path: str) -> str:
             if m:
                 spills += int(m.group(1))
     return f"{len(regs)} kernels, max {max(regs) if regs else 0} registers, spill stores {spills} bytes"
+
+
+def ptxas_msm_kernels(path: str) -> dict:
+    """Registers and spill stores/loads (bytes) of each MSM kernel entry
+    (msm_piece / msm_combine / msm_reduce, G1 and G2) from the ptxas log."""
+    import re
+
+    out, cur, props = {}, None, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                name = m.group(1)
+                k = re.search(r"(msm_\w+?_kernel)", name)
+                g = "G2" if "G2Field" in name else "G1"
+                props = f"{k.group(1)}<{g}>" if k else None
+                if "Compiling entry" in line:
+                    cur = props
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and props:
+                out.setdefault(props, {}).update(spill_stores=int(m.group(1)),
+                                                 spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def main() -> int:
@@ -718,6 +778,10 @@ def main() -> int:
         f"ptxas: {ptxas_summary(_build.BUILD_INFO['log'])}")
     with open(_build.BUILD_INFO["log"]) as f, open(os.path.join(OUT_DIR, "ptxas.log"), "w") as g:
         g.write(f.read())
+    msm_regs = ptxas_msm_kernels(_build.BUILD_INFO["log"])
+    log("ptxas MSM kernels: " + "; ".join(
+        f"{k} {v.get('registers')} registers, spill stores {v.get('spill_stores')} B, "
+        f"loads {v.get('spill_loads')} B" for k, v in sorted(msm_regs.items())))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -743,7 +807,8 @@ def main() -> int:
                    "launches_workflow": counts_wf, "launches_msm_stages": counts_ms,
                    "kernels": checks.rows, "fixed_base": fb_stats, "msm": msm_stats,
                    "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,
-                   "profile": prof, "device": name, "smi": smi}, f, indent=1)
+                   "profile": prof, "ptxas_msm": msm_regs, "device": name, "smi": smi},
+                  f, indent=1)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -134,6 +134,83 @@ def test_msm_kernels_match_plain_and_host(card, curve):
     assert M.msm_shared(curve, table, plan, add, mul) == want
 
 
+def _group(curve):
+    if curve.group == 1:
+        return bn254.G1_GEN, bn254.g1_add, bn254.g1_mul
+    return bn254.G2_GEN, bn254.g2_add, bn254.g2_mul
+
+
+@pytest.mark.parametrize("piece", [2, 5, M.PIECE])
+@pytest.mark.parametrize("c", [6, 11])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_msm_piece_kernels_match_plain(card, curve, c, piece):
+    """B5/B6 (pieces, then the combine) equal their plain version limb for
+    limb, with P == Q inside and across pieces, absent rows and a
+    prefix_pad offset; at c = 11 most buckets are empty."""
+    base, add, mul = _group(curve)
+    n, pad = 400, 7
+    table, _pts = _table(curve, base, add, mul, n - pad, 15, repeat_first=30)
+    rng = np.random.default_rng(16)
+    scal = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
+    scal[pad + 1 : pad + 31] = [scal[pad]] * 30  # 31 copies of one (point, scalar) pair
+    plan = M.plan_msm(torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card), c,
+                      split_heavy=False, piece=piece)
+    got = M.accumulate(curve, table.xs, table.ys, table.valid, pad, plan)
+    torch.cuda.synchronize()
+    want = M.accumulate_plain(curve, table.xs, table.ys, table.valid, pad, plan)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("threads", [None, 1, 8])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_batched_reduce_matches_plain_and_msm_totals_are_exact(card, curve, threads):
+    """B7 over the windows of three MSMs in one launch equals its plain
+    version limb for limb; msm_many's totals (one reduction launch for all
+    three) equal the host MSMs."""
+    base, add, mul = _group(curve)
+    n = 200
+    table, pts = _table(curve, base, add, mul, n, 17)
+    rng = np.random.default_rng(18)
+    scals = [[int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)] for _ in range(3)]
+    plans = [M.plan_msm(torch.from_numpy(host.scalars_to_limbs_fast(s)).to(card), 6, piece=3)
+             for s in scals]
+    nw, nb = plans[0].nw, plans[0].nb
+    parts = [M.accumulate(curve, table.xs, table.ys, table.valid, 0, p) for p in plans]
+    buckets = tuple(torch.cat([b[k] for b in parts]) for k in range(3))
+    got = M.reduce(curve, buckets, 3 * nw, nb, threads)
+    torch.cuda.synchronize()
+    for a, b in zip(got, M.reduce_plain(curve, buckets, 3 * nw, nb, threads)):
+        assert torch.equal(a, b)
+    _build.reset_counts()
+    totals = M.msm_many(curve, [(table, p, 0) for p in plans], add, mul)
+    assert _build.COUNTS.get(f"msm_reduce_g{curve.group}") == 1
+    for s, total in zip(scals, totals):
+        want = None
+        for p, k in zip(pts, s):
+            if p is not None:
+                want = add(want, mul(p, k))
+        assert total == want
+
+
+def test_msm_kernels_refuse_what_they_cannot_take(card):
+    base, add, mul = _group(BN254_G1)
+    table, _pts = _table(BN254_G1, base, add, mul, 64, 19)
+    sc = torch.from_numpy(host.scalars_to_limbs_fast(list(range(1, 65)))).to(card)
+    with pytest.raises(ValueError):
+        M.plan_msm(sc, 6, piece=0)
+    plan, other = M.plan_msm(sc, 6, piece=2), M.plan_msm(sc, 6, piece=4)
+    plan.piece_start, plan.piece_end, plan.piece_ptr = (
+        other.piece_start, other.piece_end, other.piece_ptr)
+    with pytest.raises(ValueError):
+        M.accumulate(BN254_G1, table.xs, table.ys, table.valid, 0, plan)
+    buckets = BN254_G1.infinity((other.nw * other.nb,), card)
+    for threads in (0, 3, 64, 512):  # nb = 32
+        with pytest.raises(ValueError):
+            M.reduce(BN254_G1, buckets, other.nw, other.nb, threads)
+    torch.cuda.synchronize()
+
+
 def test_toy_proof_on_card_equals_cpu_proof(card):
     """Setup and prove of a small circuit through the kernels give the same
     key tables and the same proof as the plain versions on the CPU."""

@@ -50,10 +50,13 @@ SIGNATURES = {
     "zk_point_add": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
     "zk_point_add_affine": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
     "zk_point_double": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
-    # msm_accum.cu
-    "zk_msm_accum": [_I, _P, _P, _P, _L, _L, _P, _P, _I, _I, _L, _P, _P, _P, _P],
-    # msm_reduce.cu
-    "zk_msm_reduce": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # msm_accum.cu: (group, xs, ys, valid, offset, n_rows, order, n, piece_start,
+    # piece_end, n_pieces, K, sx, sy, sz, stream) and (group, ix, iy, iz, n_in,
+    # group_start, group_end, n_groups, ox, oy, oz, stream)
+    "zk_msm_accum": [_I, _P, _P, _P, _L, _L, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
+    "zk_msm_combine": [_I, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
+    # msm_reduce.cu: (group, bx, by, bz, nw, nb, threads, ox, oy, oz, stream)
+    "zk_msm_reduce": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # fixed_base.cu: (group, tx, ty, tvalid, scalars, nwin, n, ox, oy, oz, stream)
     "zk_fixed_base": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
     # gather.cu: (tab, idx, T, W, M, out, stream)
@@ -141,15 +144,17 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, counter: str, *args) -> None:
-    """Call one exported launcher, raise on a CUDA error, count the launch."""
+def launch(name: str, counter: Optional[str], *args) -> None:
+    """Call one exported launcher, raise on a CUDA error, count the launch
+    (under no counter when a wrapper's one kernel takes several launchers)."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    COUNTS[counter] = COUNTS.get(counter, 0) + 1
+    if counter is not None:
+        COUNTS[counter] = COUNTS.get(counter, 0) + 1
 
 
 def reset_counts() -> None:

@@ -4,9 +4,11 @@ Port of the JAX package's `experiments/msm_stages.py`: each stage of a G1
 MSM over 2^log_n points is timed on its own, and ways of gathering point
 rows are raced against each other.
 
-    python -m zkpoa_tpu_torch.experiments.msm_stages [log_n] [c] [--device cuda|cpu] [--out PATH]
+    python -m zkpoa_tpu_torch.experiments.msm_stages [log_n] [c] [--device cuda|cpu]
+        [--piece K] [--out PATH]
 
-Defaults: log_n 20 and c 13 (the JAX harness's), device cuda, out
+Defaults: log_n 20 and c 13 (the JAX harness's), device cuda, K the plan's
+default piece size (`ops/msm.py` PIECE: bucket entries per B5 thread), out
 build/torch_experiments/msm_stages.json (never the JAX harness's
 experiments/MSM_STAGES.json). On the card a stage's `warm_s` is its first
 call on the host clock with a synchronize, and `best_s` the least CUDA-event
@@ -31,7 +33,12 @@ Stages, by the JAX harness's names where it has the stage:
   g_dma_pallas    E3 `gather_async` at the TPU's shape: [2^18, 128], 2^14 rows
   g_dma_msm       E3 at the MSM's shape: the x|y table [N, 16], N rows in
                   B5's visit order
-  full_group      one B5 launch (`accumulate`) over the whole plan
+  full_group      one B5 call (`accumulate`: the piece and combine
+                  kernels) over the whole plan; `pieces` (of at most
+                  `piece` entries), `max_pieces` (the most of any bucket),
+                  `combine_levels` and `combine_depth` (the longest chain
+                  of full adds through them) beside `occupancy` (the
+                  longest bucket run)
   reduce          B7 (`reduce`) of those buckets
   msm             the whole MSM (`msm`: plan, B5, B7, Horner), checked exactly
 The library gathers (torch.index_select stands for jnp.take) gather the
@@ -161,8 +168,9 @@ class Timer:
         return {"warm_s": warm, "best_s": best}
 
 
-def run(log_n: int, c: int, device: torch.device) -> dict:
-    """Every stage at N = 2^log_n and window size c; returns the results."""
+def run(log_n: int, c: int, device: torch.device, piece: int = M.PIECE) -> dict:
+    """Every stage at N = 2^log_n, window size c and piece size `piece`;
+    returns the results."""
     n = 1 << log_n
     nw, nb = M.geometry(c)
     timeit = Timer(device, REPS[device.type])
@@ -176,9 +184,12 @@ def run(log_n: int, c: int, device: torch.device) -> dict:
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(device)
 
     res["digits"] = timeit("digits", lambda: M.recode(sc, c))
-    res["plan(sort)"] = timeit("plan(sort)", lambda: M.plan_msm(sc, c, split_heavy=False))
+    res["plan(sort)"] = timeit("plan(sort)",
+                               lambda: M.plan_msm(sc, c, split_heavy=False, piece=piece))
     plan = timeit.last
     res["occupancy"] = int((plan.starts[:, 1:] - plan.starts[:, :-1]).max())
+    res.update(piece=plan.piece, pieces=plan.n_pieces, max_pieces=plan.max_pieces,
+               combine_levels=len(plan.combine), combine_depth=plan.combine_depth)
 
     xs = table.xs
     xy = torch.cat([table.xs, table.ys], dim=1)
@@ -211,7 +222,8 @@ def run(log_n: int, c: int, device: torch.device) -> dict:
     buckets = timeit.last
     res["reduce"] = timeit("reduce", lambda: M.reduce(BN254_G1, buckets, nw, nb))
 
-    res["msm"] = timeit("msm", lambda: M.msm(BN254_G1, table, sc, bn254.g1_add, bn254.g1_mul, c))
+    res["msm"] = timeit("msm", lambda: M.msm(BN254_G1, table, sc, bn254.g1_add, bn254.g1_mul, c,
+                                             piece))
     got = timeit.last
     want = bn254.g1_mul(bn254.G1_GEN, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
     res["msm"].update(exact=got == want, x=str(got[0]) if got else None,
@@ -225,12 +237,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("log_n", nargs="?", type=int, default=20)
     ap.add_argument("c", nargs="?", type=int, default=13)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--piece", type=int, default=M.PIECE)
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         log("no CUDA device (pass --device cpu to run the plain versions)")
         return 1
-    res = run(args.log_n, args.c, torch.device(args.device))
+    res = run(args.log_n, args.c, torch.device(args.device), args.piece)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
