@@ -9,8 +9,9 @@ and build a 2^20-leaf Merkle tree.
 Phases, each printing a line:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: nvcc builds csrc/*.cu into build/torch_kernels/; the registers
-     and spills of every MSM kernel (B5/B6's piece and combine kernels, B7)
-     from the ptxas log, on a line of their own;
+     and spills of every MSM kernel (B5/B6's piece and combine kernels, B7,
+     Horner) and of the fold kernel from the ptxas log, on a line of their
+     own;
   3. kernels vs plain, exact equality of limbs, with both times and each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its int32
      operations over the card's int32 issue rate):
@@ -24,8 +25,14 @@ Phases, each printing a line:
      the main path's window size (24 windows of 1024 buckets), with the
      plan's piece count and combine depth; reduction as the main path calls
      it, G1 over four MSMs' buckets (96 windows) in one launch and over one
-     (24), G2 over one; each MSM's total checked exactly (P_i = g_i G, so
-     the result is (sum s_i g_i mod r) G);
+     (24), G2 over one; Horner over those window totals as the main path
+     calls it (msm_horner: G1 four MSMs, G2 one, c = 11); the fold of the
+     heavy-value sums at the main path's shape (point_fold: 24 segments of
+     2^16 lanes G1, 8 G2); each MSM's total checked exactly (P_i = g_i G,
+     so the result is (sum s_i g_i mod r) G). B7, Horner and the fold also
+     get a latency bound: the dependent Montgomery products on the chain's
+     critical path times one product's latency, measured first by a
+     one-thread chain of 2^16 products (`zk_mont_chain`);
   4. main path, layer one: parse build/recursive_run/sigs.json, then the
      prover CLI `prove --layer one --repeat 2` (circuit build, setup_device,
      two proofs against the one key, each verified by the host pairing
@@ -52,15 +59,22 @@ Phases, each printing a line:
      (the plain version is index_select, so its time is also the library
      time). The c = 11 run's whole-MSM stage is the G1 MSM at 2^20 in
      Mpoints/s. The launch counts of phases 4, 5 and 7 (each reset just
-     before it) must together be non-zero for every kernel;
+     before it) must together be non-zero for every kernel of a path;
+     B3/B4 run on the path inside msm_horner and point_fold, and the
+     elementwise point_add / point_double, which no path calls any more,
+     are checked in phase 3 only (so marked in the kernels line);
   8. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
      4 random leaves and their proofs checked with the host Poseidon;
   9. profile: one more layer-one key and three proofs, the last under
      torch.profiler; prints its wall time, the device's busy time as the
      union of kernel, memcpy and memset intervals, the idle share, the phase
      ends, the kernels by device time, each launch's time of the MSM
-     kernels (B5/B6 pieces and combine, B7) and the peak device memory.
-     The trace goes to build/chip_smoke/prove_trace.json.
+     kernels (B5/B6 pieces and combine, B7), every point and chain kernel's
+     device ms and launches (B2-B4, msm_horner, point_fold, B5-B7), the
+     prove's launch counts and its MSM copies to the host, and the peak
+     device memory. It fails unless the prove launched Horner twice (G1,
+     G2), the fold at most four times and copied MSM results to the host
+     at most twice. The trace goes to build/chip_smoke/prove_trace.json.
 The second-to-last line is a JSON object listing every kernel; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 """
@@ -109,12 +123,20 @@ KERNELS = {
     "msm_accum_g2": ("csrc/msm_accum.cu", "zkpoa_tpu/ops/msm_pallas.py:1549"),
     "msm_reduce_g1": ("csrc/msm_reduce.cu", "zkpoa_tpu/ops/msm_pallas.py:666"),
     "msm_reduce_g2": ("csrc/msm_reduce.cu", "zkpoa_tpu/ops/msm_pallas.py:666"),
+    "msm_horner_g1": ("csrc/msm_horner.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
+    "msm_horner_g2": ("csrc/msm_horner.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
+    "point_fold_g1": ("csrc/point_fold.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
+    "point_fold_g2": ("csrc/point_fold.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "fixed_base_g1": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
     "fixed_base_g2": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
     "gather_smem_rows": ("csrc/gather.cu", "experiments/msm_stages.py:91"),
     "gather_smem_vec": ("csrc/gather.cu", "experiments/msm_stages.py:110"),
     "gather_async": ("csrc/gather.cu", "experiments/msm_stages.py:150"),
 }
+# The elementwise B3/B4 that no path calls since Horner and the heavy-value
+# fold have kernels of their own: held against their plain versions in
+# phase 3 only. B3 and B4 run on the paths inside msm_horner and point_fold.
+PHASE3_ONLY = {"point_add_g1", "point_add_g2", "point_double_g1", "point_double_g2"}
 
 # The bound of a kernel is the larger of its bytes over the memory rate and
 # its int32 operations over the issue rate (NVIDIA H100 SXM data sheet and
@@ -133,6 +155,30 @@ PRODUCTS = {
     "double": {1: 7, 2: 2 * 3 + 5 * 2},
 }
 COORD_BYTES = {1: 32, 2: 64}
+# Dependent Montgomery products on a formula's critical path (curve.cuh):
+# dbl-2009-l {X^2, Y^2, YZ} -> {B^2, (X + B)^2, E^2} -> {E (D - X3)}; the
+# unified add {Z1^2, Z2^2, Y1 Z2, Y2 Z1, Z1 Z2} -> {U1, U2, S1, S2} ->
+# {H^2, R^2, Z1Z2 H} -> {H HH, U1 HH} -> {R (V - X3), S1 HHH}. The same in
+# G2, whose Fq2 product is three independent Fq products.
+CHAIN = {"double": 3, "add": 5}
+
+
+def reduce_chain(nb: int, threads: int) -> int:
+    """Products on B7's critical path for one window (csrc/msm_reduce.cu):
+    L = nb / T buckets a thread, the running sum's L - 1 adds (the first
+    adds to infinity), log2 T scan adds, log2 L doublings, one add of tot,
+    log2 T tree adds."""
+    seg = nb // threads
+    log_t, log_seg = threads.bit_length() - 1, seg.bit_length() - 1
+    return CHAIN["add"] * (seg + 2 * log_t) + CHAIN["double"] * log_seg
+
+
+def horner_work(c: int):
+    """(doublings, adds) of Horner over the windows of one MSM at c."""
+    from zkpoa_tpu_torch.ops import msm as M
+
+    wins = M.windows(c)
+    return sum(width for _off, width, _signed in wins[:-1]), len(wins) - 1
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -172,12 +218,15 @@ class Checks:
     def __init__(self, torch):
         self.torch = torch
         self.rows = {}
+        self.mont_latency_ms = None  # one Fq product's latency (mont_latency)
 
     def record(self, name, got, want, fn_kernel, fn_plain, work, reps=20, plain_reps=1,
-               plain_is_library=False):
+               plain_is_library=False, chain=None):
         """work = (bytes, int32 operations) of one call, for its bound;
         plain_is_library: fn_plain is one PyTorch call computing the same
-        function, so its time is also the library time (else there is none)."""
+        function, so its time is also the library time (else there is none);
+        chain: the dependent Montgomery products on the kernel's critical
+        path, for its latency bound (chain x one product's latency)."""
         err = max_abs_err(self.torch, got, want)
         ms = time_ms(self.torch, fn_kernel, reps)
         plain_ms = time_ms(self.torch, fn_plain, plain_reps)
@@ -185,9 +234,14 @@ class Checks:
         bound_ms, bound_by = bound(*work)
         self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        lat = ""
+        if chain is not None:
+            self.rows[name]["latency_bound_ms"] = chain * self.mont_latency_ms
+            lat = f", latency bound {chain * self.mont_latency_ms:.4f} ms ({chain} products)"
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"{name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} B, {work[1]:.4g} int32 ops)")
+            f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} B, {work[1]:.4g} int32 ops)"
+            f"{lat}")
         if err != 0:
             fail(f"{name}: kernel disagrees with its plain version")
 
@@ -274,6 +328,27 @@ def check_points(torch, checks, gen):
                           (nbytes * n, PRODUCTS[formula][g] * MONT_OPS * n))
 
 
+def mont_latency(torch, checks, gen) -> float:
+    """One Fq Montgomery product's latency on the card, ms: a one-thread
+    chain of 2^16 dependent products (the probe is first held against the
+    same chain of plain products)."""
+    from zkpoa_tpu_torch.ops import field_kernels as FK
+    from zkpoa_tpu_torch.ops import limbs as L
+
+    a = rand_field(torch, L.BN254_FQ, 2, gen)
+    x = a[0]
+    for _ in range(64):
+        x = L.mont_mul_plain(L.BN254_FQ, x, a[1])
+    if not torch.equal(FK.mont_chain(a[0], a[1], 64), x):
+        fail("the Montgomery chain probe disagrees with its plain version")
+    steps = 1 << 16
+    ms = time_ms(torch, lambda: FK.mont_chain(a[0], a[1], steps), 3)
+    checks.mont_latency_ms = ms / steps
+    log(f"Montgomery product latency: {ms / steps * 1e6:.1f} ns (one thread, a chain of "
+        f"{steps} dependent Fq products in {ms:.3f} ms)")
+    return ms / steps
+
+
 def fixed_base_b2_loop(ops, base, host_add, scalars, n_bits):
     """The B2-loop route of fixed-base multiplication on the card (setup's
     route before B8), kept here as a yardstick for B8: one gather and one
@@ -340,6 +415,7 @@ def check_msm(torch, checks, gen):
     from zkpoa_tpu_torch import host
     from zkpoa_tpu_torch.experiments.msm_stages import fixed_base_points
     from zkpoa_tpu_torch.fields import bn254
+    from zkpoa_tpu_torch.ops import limbs as L
     from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.ops.curve import BN254_G1
     from zkpoa_tpu_torch.ops.fp2 import BN254_G2
@@ -385,9 +461,37 @@ def check_msm(torch, checks, gen):
             nw = m * plan.nw
             red = lambda: M.reduce(curve, bk, nw, plan.nb)  # noqa: E731
             red_plain = lambda: M.reduce_plain(curve, bk, nw, plan.nb)  # noqa: E731
-            checks.record(f"msm_reduce_g{g}[{nw} windows]", red(), red_plain(), red, red_plain,
+            totals = red()
+            checks.record(f"msm_reduce_g{g}[{nw} windows]", totals, red_plain(), red, red_plain,
                           (3 * cb * (m * lanes + nw),
-                           2 * m * lanes * PRODUCTS["add"][g] * MONT_OPS), reps=5)
+                           2 * m * lanes * PRODUCTS["add"][g] * MONT_OPS), reps=5,
+                          chain=reduce_chain(plan.nb, M.reduce_threads(plan.nb)))
+            if m == n_msm:
+                main_totals = tuple(t.reshape((m, plan.nw) + curve.coord_shape) for t in totals)
+        # Horner over those totals as the main path calls it: one launch, a warp per MSM
+        hk = lambda: M.horner(curve, main_totals, c)  # noqa: E731
+        hp = lambda: M.horner_plain(curve, main_totals, c)  # noqa: E731
+        dbls, adds_h = horner_work(c)
+        checks.record(f"msm_horner_g{g}[{n_msm} MSMs, c={c}]", hk(), hp(), hk, hp,
+                      (3 * cb * n_msm * (plan.nw + 1),
+                       n_msm * (dbls * PRODUCTS["double"][g] + adds_h * PRODUCTS["add"][g])
+                       * MONT_OPS), reps=10,
+                      chain=CHAIN["double"] * dbls + CHAIN["add"] * adds_h)
+        # the heavy-value fold at the main path's shape: (a, b1, c) x 8 heavy
+        # values of 2^16 lanes each in G1, b2 x 8 in G2; every lane a point
+        n_seg, width = (24 if g == 1 else 8), M.TREE_BLOCK
+        idx = torch.randint(0, n, (n_seg * width,), generator=gen, device="cuda")
+        ar = curve.arith("cuda")
+        one = L.to_i32(ar.one_like(L.u32(table.xs[:1])))
+        xs_f = table.xs[idx]
+        lanes_f = (xs_f, table.ys[idx], one.expand(xs_f.shape).contiguous())
+        fk = lambda: M.fold(curve, lanes_f, width)  # noqa: E731
+        fp = lambda: M.fold_plain(curve, lanes_f, width)  # noqa: E731
+        checks.record(f"point_fold_g{g}[{n_seg} x 2^16 lanes]", fk(), fp(), fk, fp,
+                      (3 * cb * n_seg * (width + 1),
+                       n_seg * (width - 1) * PRODUCTS["add"][g] * MONT_OPS), reps=5,
+                      chain=CHAIN["add"] * (width.bit_length() - 1))
+        del lanes_f, xs_f, idx
         got = M.msm_shared(curve, table, plan, add, mul)
         want = mul(base, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
         if got != want:
@@ -643,11 +747,46 @@ def busy_us(events) -> float:
     return total
 
 
+def device_events(trace) -> list:
+    """Kernel, memcpy and memset events of a torch.profiler chrome trace."""
+    return [e for e in trace["traceEvents"] if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def kernel_times(dev) -> dict:
+    """name -> (device ms, launches) of device events."""
+    by_name = {}
+    for e in dev:
+        name = e["name"].split("(")[0].replace("void ", "")
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    return by_name
+
+
+def point_kernel_times(by_name) -> dict:
+    """(device ms, launches) of every point and chain kernel: B2-B4
+    elementwise, Horner, the fold, B5-B7, by group."""
+    import re
+
+    out = {}
+    for name, (ms, n) in by_name.items():
+        k = re.search(r"(add_affine_kernel|add_kernel|double_kernel|msm_horner_kernel|"
+                      r"point_fold_kernel|msm_piece_kernel|msm_combine_kernel|"
+                      r"msm_reduce_kernel)<zk::(G[12])Field>", name)
+        if k:
+            out[f"{k.group(1)}<{k.group(2)}>"] = (ms, n)
+    return out
+
+
 def profile_prove(torch):
     """A warm layer-one prove under torch.profiler: wall, device busy time
-    and idle share, phase ends, kernels by device time, peak memory."""
+    and idle share, phase ends, kernels by device time, every point and
+    chain kernel's device time and launches, the prove's launch counts and
+    MSM copies to the host, peak memory."""
     from torch.profiler import ProfilerActivity, profile
 
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
     from zkpoa_tpu_torch.prover import __main__ as cli
     from zkpoa_tpu_torch.prover import groth16
@@ -665,12 +804,16 @@ def profile_prove(torch):
         unprofiled.append(time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     phases = []
+    _build.reset_counts()
+    M.HOST_SYNCS.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         proof = prove(pk, r1cs, witness, "cuda", log=phases.append)
         _sync("cuda")
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    counts = dict(_build.COUNTS)
+    syncs = dict(M.HOST_SYNCS)
     if not groth16.verify(groth16.VerifyingKey.from_json(pk.vk_json), proof,
                           circuit.public_values):
         fail("the profiled proof does not verify")
@@ -678,15 +821,11 @@ def profile_prove(torch):
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)
-    dev = [e for e in trace["traceEvents"] if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev = device_events(trace)
     busy = busy_us(dev) / 1e6
-    by_name = {}
-    for e in dev:
-        name = e["name"].split("(")[0].replace("void ", "")
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    by_name = kernel_times(dev)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    chain_kernels = point_kernel_times(by_name)
     msm_launches = {}  # each launch of the MSM kernels, in order, ms
     for e in sorted(dev, key=lambda e: e["ts"]):
         for k in ("msm_piece_kernel", "msm_combine_kernel", "msm_reduce_kernel"):  # B5/B6, B7
@@ -701,11 +840,23 @@ def profile_prove(torch):
         log(f"profile kernel {ms:9.3f} ms {n:5d}x {name[:110]}")
     for name, times in msm_launches.items():
         log(f"profile {name} per launch ms: {[round(t, 3) for t in times]}")
+    log("profile point and chain kernels, device ms / launches: " + "; ".join(
+        f"{k} {ms:.3f} / {n}" for k, (ms, n) in sorted(chain_kernels.items())))
+    log(f"profile launches: {json.dumps(counts, sort_keys=True)}; MSM copies to the host: "
+        f"{json.dumps(syncs, sort_keys=True)}")
     if not dev:
         fail("the profiled prove shows no device work")
+    horner = (counts.get("msm_horner_g1", 0), counts.get("msm_horner_g2", 0))
+    folds = counts.get("point_fold_g1", 0) + counts.get("point_fold_g2", 0)
+    if horner != (1, 1) or folds > 4 or sum(syncs.values()) > 2:
+        fail(f"a warm prove launched Horner {horner} times (G1, G2), the fold {folds} times "
+             f"and copied MSM results to the host {sum(syncs.values())} times: expected "
+             f"(1, 1), at most 4 and at most 2")
     return {"unprofiled_s": unprofiled, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / wall, "peak_bytes": peak, "phases": phases,
-            "top": [[name, ms, n] for name, (ms, n) in top], "msm_launches_ms": msm_launches}
+            "top": [[name, ms, n] for name, (ms, n) in top], "msm_launches_ms": msm_launches,
+            "chain_kernels": {k: [ms, n] for k, (ms, n) in chain_kernels.items()},
+            "launches": counts, "msm_host_syncs": syncs}
 
 
 def ptxas_summary(path: str) -> str:
@@ -725,7 +876,8 @@ def ptxas_summary(path: str) -> str:
 
 def ptxas_msm_kernels(path: str) -> dict:
     """Registers and spill stores/loads (bytes) of each MSM kernel entry
-    (msm_piece / msm_combine / msm_reduce, G1 and G2) from the ptxas log."""
+    (msm_piece / msm_combine / msm_reduce / msm_horner and point_fold, G1
+    and G2) from the ptxas log."""
     import re
 
     out, cur, props = {}, None, None
@@ -734,7 +886,7 @@ def ptxas_msm_kernels(path: str) -> dict:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
             if m:
                 name = m.group(1)
-                k = re.search(r"(msm_\w+?_kernel)", name)
+                k = re.search(r"(msm_\w+?_kernel|point_fold_kernel)", name)
                 g = "G2" if "G2Field" in name else "G1"
                 props = f"{k.group(1)}<{g}>" if k else None
                 if "Compiling entry" in line:
@@ -779,7 +931,7 @@ def main() -> int:
     with open(_build.BUILD_INFO["log"]) as f, open(os.path.join(OUT_DIR, "ptxas.log"), "w") as g:
         g.write(f.read())
     msm_regs = ptxas_msm_kernels(_build.BUILD_INFO["log"])
-    log("ptxas MSM kernels: " + "; ".join(
+    log("ptxas MSM and fold kernels: " + "; ".join(
         f"{k} {v.get('registers')} registers, spill stores {v.get('spill_stores')} B, "
         f"loads {v.get('spill_loads')} B" for k, v in sorted(msm_regs.items())))
 
@@ -789,6 +941,7 @@ def main() -> int:
     check_field(torch, checks, gen)
     check_points(torch, checks, gen)
     fb_stats = check_fixed_base(torch, checks)
+    mont_ms = mont_latency(torch, checks, gen)
     check_msm(torch, checks, gen)
     stats, counts_l1 = main_path(torch)
     with tempfile.TemporaryDirectory() as tmp:
@@ -797,7 +950,7 @@ def main() -> int:
     stages, counts_ms, msm_stats = msm_stages_path(torch, checks)
     counts = {k: counts_l1.get(k, 0) + counts_wf.get(k, 0) + counts_ms.get(k, 0)
               for k in set(counts_l1) | set(counts_wf) | set(counts_ms)}
-    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
+    missing = [k for k in KERNELS if k not in PHASE3_ONLY and counts.get(k, 0) == 0]
     if missing:
         fail(f"kernels not launched by the layer-one, workflow and msm_stages phases: {missing}")
     merkle = merkle_2p20(torch)
@@ -807,20 +960,26 @@ def main() -> int:
                    "launches_workflow": counts_wf, "launches_msm_stages": counts_ms,
                    "kernels": checks.rows, "fixed_base": fb_stats, "msm": msm_stats,
                    "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,
-                   "profile": prof, "ptxas_msm": msm_regs, "device": name, "smi": smi},
+                   "profile": prof, "ptxas_msm": msm_regs, "mont_latency_ms": mont_ms,
+                   "device": name, "smi": smi},
                   f, indent=1)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
         rows = [r for k, r in checks.rows.items() if k.split("[")[0] == kname]
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": f"zkpoa_tpu_torch/{src}",
             "replaces": replaces, "launches": counts.get(kname, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
             "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
             "library_ms": rows[0]["library_ms"],  # None where no PyTorch call computes it
-        })
+        }
+        if "latency_bound_ms" in rows[0]:
+            entry["latency_bound_ms"] = rows[0]["latency_bound_ms"]
+        if kname in PHASE3_ONLY:
+            entry["checked"] = "phase 3 only"
+        kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -310,3 +310,154 @@ def test_gather_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError):
         G.gather_async(flat[1:].view(64, 16), idx)
     assert _build.COUNTS == {}
+
+
+def _jacobian_points(curve, pts, rng, device):
+    """Host affine points (None = infinity) -> Jacobian Montgomery tensors
+    (x l^2, y l^3, l), a random l per point; infinity as (l^2, l^3, 0)."""
+    g2 = curve.group == 2
+    mul = bn254.fp2_mul if g2 else (lambda a, b: a * b % bn254.P)
+    xs, ys, zs = [], [], []
+    for pt in pts:
+        lam = int.from_bytes(rng.bytes(32), "big") % (bn254.P - 1) + 1
+        lam = (lam, lam // 5) if g2 else lam
+        l2 = mul(lam, lam)
+        l3 = mul(l2, lam)
+        inf = pt is None
+        xs.append(l2 if inf else mul(pt[0], l2))
+        ys.append(l3 if inf else mul(pt[1], l3))
+        zs.append(((0, 0) if g2 else 0) if inf else lam)
+    return tuple(curve.encode_coords(v, device) for v in (xs, ys, zs))
+
+
+@pytest.mark.parametrize("c", [11, 5, 13])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_horner_kernel_matches_plain_and_host(card, curve, c):
+    """msm_horner at the main path's shapes (G1 over four MSMs, G2 over one)
+    equals horner_plain limb for limb and the host sum, with an infinity
+    top window, T_w == res (a doubling inside the add), T_w == -res (res
+    all-zero, then restarted), a whole MSM at infinity (G1); then 64 MSMs
+    of random coordinates in one launch."""
+    base, _add, mul = _group(curve)
+    m = 4 if curve.group == 1 else 1
+    wins = M.windows(c)
+    nw = len(wins)
+    rng = np.random.default_rng(40 + c)
+    ks = [[int(x) for x in rng.integers(1, 2**62, size=nw)] for _ in range(m)]
+    ks[0][nw - 1] = 0
+    if m == 4:
+        ks[2] = [0] * nw
+    special = {(0, nw - 4): 1, (m - 1, nw - 7): -1, (m - 1, 2): 1}
+    want = []
+    for i in range(m):
+        acc = ks[i][nw - 1]
+        for w in range(nw - 2, -1, -1):
+            acc = acc * (1 << wins[w][1]) % bn254.R
+            if (i, w) in special:
+                ks[i][w] = special[(i, w)] * acc % bn254.R
+            acc = (acc + ks[i][w]) % bn254.R
+        want.append(mul(base, acc) if acc else None)
+    pts = [mul(base, k) if k else None for row in ks for k in row]
+    tot = tuple(t.reshape((m, nw) + curve.coord_shape)
+                for t in _jacobian_points(curve, pts, rng, card))
+    _build.reset_counts()
+    got = M.horner(curve, tot, c)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {f"msm_horner_g{curve.group}": 1}
+    for a, b in zip(got, M.horner_plain(curve, tot, c)):
+        assert torch.equal(a, b)
+    assert curve.decode_jac(got) == want
+    rand = tuple(_rand(curve.field, (64, nw) + curve.coord_shape[:-1], 50 + k + c).to(card)
+                 for k in range(3))
+    for a, b in zip(M.horner(curve, rand, c), M.horner_plain(curve, rand, c)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("width,chunk", [(65536, None), (16, 4), (64, 64), (2, 2)])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_fold_kernel_matches_plain(card, curve, width, chunk):
+    """point_fold over three segments of random coordinates with infinity
+    lanes, P == Q and P == -Q pairs at the first level, one launch per
+    chunk level, equal to fold_plain limb for limb."""
+    n_seg = 3
+    shape = (n_seg * width,) + curve.coord_shape[:-1]
+    lanes = tuple(_rand(curve.field, shape, 60 + k).to(card) for k in range(3))
+    ch = min(width, chunk or M.FOLD_CHUNK[curve.group])
+    if width >= 4:
+        half = ch // 2
+        for t in lanes:
+            t[half] = t[0]  # P == Q
+        lanes[1][width + 1 + half] = L.sub_mod_plain(
+            curve.field, torch.zeros_like(lanes[1][width + 1]), lanes[1][width + 1])
+        lanes[0][width + 1 + half] = lanes[0][width + 1]
+        lanes[2][width + 1 + half] = lanes[2][width + 1]  # P == -Q
+        lanes[2][2 * width : 2 * width + width // 2] = 0  # infinity lanes
+    _build.reset_counts()
+    got = M.fold(curve, lanes, width, chunk)
+    torch.cuda.synchronize()
+    launches = len(M.fold_chunks(width, chunk or M.FOLD_CHUNK[curve.group]))
+    assert _build.COUNTS == ({f"point_fold_g{curve.group}": launches} if launches else {})
+    for a, b in zip(got, M.fold_plain(curve, lanes, width, chunk)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_msm_many_heavy_sums_on_card(card, curve):
+    """msm_many with two heavy values over two tables (one at a prefix
+    pad): one Horner launch, at most two fold launches, one B2 launch per
+    round, one copy to the host; the totals equal the host MSMs and the
+    heavy sums equal the CPU's."""
+    base, add, mul = _group(curve)
+    n, pad = 600, 40
+    table, pts = _table(curve, base, add, mul, n, 70)
+    sub = type(table)(table.xs[pad:], table.ys[pad:], table.valid[pad:])
+    rng = np.random.default_rng(71)
+    scal = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
+    scal[0:560:2] = [1] * 280
+    scal[1:560:2] = [7] * 280
+    plan = M.plan_msm(torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card), 6)
+    assert sorted(v for v, _ in plan.heavy) == [1, 7]
+    _build.reset_counts()
+    M.HOST_SYNCS.clear()
+    got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)], add, mul)
+    g = curve.group
+    assert _build.COUNTS[f"msm_horner_g{g}"] == 1
+    assert 1 <= _build.COUNTS[f"point_fold_g{g}"] <= 2
+    assert _build.COUNTS[f"point_add_affine_g{g}"] == 1  # 280 entries fit one round of 512 lanes
+    assert f"point_add_g{g}" not in _build.COUNTS and f"point_double_g{g}" not in _build.COUNTS
+    assert M.HOST_SYNCS == {f"msm_decode_g{g}": 1}
+    for k, off in enumerate((0, pad)):
+        want = None
+        for i, s in enumerate(scal):
+            if i >= off and pts[i] is not None:
+                want = add(want, mul(pts[i], s))
+        assert got[k] == want
+    segs = [(table, sel, 0) for _v, sel in plan.heavy] + [(sub, sel, pad) for _v, sel in plan.heavy]
+    cpu = lambda t: type(t)(t.xs.cpu(), t.ys.cpu(), t.valid.cpu())  # noqa: E731
+    segs_cpu = [(cpu(t), sel.cpu(), off) for t, sel, off in segs]
+    for block, chunk in ((M.TREE_BLOCK, None), (64, 4)):
+        on_card = M.tree_sum_many(curve, segs, block, chunk)
+        assert curve.decode_jac(on_card) == curve.decode_jac(
+            M.tree_sum_many(curve, segs_cpu, block, chunk))
+
+
+def test_horner_and_fold_refuse_what_they_cannot_take(card):
+    tot = BN254_G1.infinity((2, 10), card)  # c = 11 has 24 windows
+    with pytest.raises(ValueError):
+        M.horner(BN254_G1, tot, 11)
+    lanes = BN254_G1.infinity((48,), card)
+    with pytest.raises(ValueError):
+        M.fold(BN254_G1, lanes, 32)  # 48 lanes are not whole segments of 32
+    with pytest.raises(ValueError):
+        M.fold(BN254_G1, BN254_G1.infinity((2048,), card), 1024, 1024)
+    assert len(M.horner(BN254_G1, BN254_G1.infinity((0, 24), card), 11)[0]) == 0
+
+
+def test_mont_chain_probe_matches_plain(card):
+    """The latency probe of chip_smoke.py: a chain of products equals the
+    same chain of plain products."""
+    a = _rand(L.BN254_FQ, (2,), 80).to(card)
+    x = a[0]
+    for _ in range(64):
+        x = L.mont_mul_plain(L.BN254_FQ, x, a[1])
+    assert torch.equal(FK.mont_chain(a[0], a[1], 64), x)

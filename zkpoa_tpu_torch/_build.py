@@ -57,6 +57,12 @@ SIGNATURES = {
     "zk_msm_combine": [_I, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P],
     # msm_reduce.cu: (group, bx, by, bz, nw, nb, threads, ox, oy, oz, stream)
     "zk_msm_reduce": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # msm_horner.cu: (group, tx, ty, tz, m, nw, c, n_signed, ox, oy, oz, stream)
+    "zk_msm_horner": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # point_fold.cu: (group, ix, iy, iz, n_out, chunk, ox, oy, oz, stream)
+    "zk_point_fold": [_I, _P, _P, _P, _L, _I, _P, _P, _P, _P],
+    # field_ops.cu latency probe: (a, b, out, steps, stream)
+    "zk_mont_chain": [_P, _P, _P, _L, _P],
     # fixed_base.cu: (group, tx, ty, tvalid, scalars, nwin, n, ox, oy, oz, stream)
     "zk_fixed_base": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
     # gather.cu: (tab, idx, T, W, M, out, stream)

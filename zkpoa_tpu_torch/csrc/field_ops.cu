@@ -49,7 +49,28 @@ static cudaError_t launch_binop(int op, const uint32_t* a, const uint32_t* b, ui
   return cudaGetLastError();
 }
 
+// Latency probe, on no path: one thread, x = x * b over Fq `steps` times,
+// each product waiting on the last. Its time over `steps` is one Montgomery
+// product's latency, the unit of the chain bounds of B7, the Horner kernel
+// and the fold (chip_smoke.py phase 3).
+__global__ void mont_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                                  uint32_t* __restrict__ out, long long steps) {
+  fe x = fe_load(a);
+  const fe y = fe_load(b);
+  for (long long i = 0; i < steps; ++i) x = fe_mul<FQ>(x, y);
+  fe_store(out, x);
+}
+
 }  // namespace zk
+
+extern "C" int zk_mont_chain(const void* a, const void* b, void* out, long long steps,
+                             void* stream) {
+  if (steps < 0) return (int)cudaErrorInvalidValue;
+  zk::mont_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), steps);
+  return (int)cudaGetLastError();
+}
 
 // field: 0 = Fq, 1 = Fr; op: 0 = Montgomery product, 1 = add, 2 = subtract
 extern "C" int zk_field_binop(int field, int op, const void* a, const void* b, void* out,

@@ -189,9 +189,11 @@ class CurveOps(_CurveBase):
         return self.encode_coords(xs, device), self.encode_coords(ys, device), valid.to(device)
 
     def decode_jac(self, p: Jac):
-        """Jacobian tensors [N, 8] -> list of affine int tuples (None = inf)."""
-        dec = self.field.decode
-        xs, ys, zs = dec(p[0]), dec(p[1]), dec(p[2])
+        """Jacobian tensors [N, 8] -> list of affine int tuples (None = inf);
+        the three coordinates reach the host in one copy."""
+        flat = self.field.decode(torch.stack(p))
+        n = len(flat) // 3
+        xs, ys, zs = flat[:n], flat[n : 2 * n], flat[2 * n :]
         mod = self.field.modulus
         out = []
         for x, y, z in zip(xs, ys, zs):

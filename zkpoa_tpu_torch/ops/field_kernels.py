@@ -64,6 +64,20 @@ def field_binop(spec: FieldSpec, op: int, a: torch.Tensor, b: torch.Tensor) -> t
     return out
 
 
+def mont_chain(a: torch.Tensor, b: torch.Tensor, steps: int) -> torch.Tensor:
+    """a * b^steps * R^-steps over Fq by one thread's chain of `steps`
+    dependent Montgomery products (a latency probe; no path calls it)."""
+    _check(a, "a")
+    _check(b, "b")
+    if a.shape != (8,) or b.shape != (8,):
+        raise ValueError("mont_chain takes one element each: [8] limbs")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    _build.launch("zk_mont_chain", "mont_chain_probe", a.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), steps)
+    return out
+
+
 Jac = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 

@@ -111,8 +111,11 @@ class G2Ops(_CurveBase):
         return self.encode_coords(xs, device), self.encode_coords(ys, device), valid.to(device)
 
     def decode_jac(self, p: Jac):
-        dec = self.field.decode
-        xs, ys, zs = (dec(c) for c in p)
+        """[N, 2, 8] Jacobian tensors -> affine Fp2 int pairs (None = inf),
+        the three coordinates in one copy to the host."""
+        flat = self.field.decode(torch.stack(p))
+        n = len(flat) // 3
+        xs, ys, zs = flat[:n], flat[n : 2 * n], flat[2 * n :]
         out = []
         for i in range(len(zs) // 2):
             z = (zs[2 * i], zs[2 * i + 1])

@@ -21,7 +21,10 @@ The schedule is signed c-bit windows with 2^(c-1) buckets each:
   * reduction (kernel B7, csrc/msm_reduce.cu): per window
     T_w = sum_j (j + 1) B_j, one block per window, every window of every
     MSM with the same c in one launch (`msm_many`);
-  * Horner over windows through the point kernels B3/B4.
+  * Horner over windows (kernel msm_horner, csrc/msm_horner.cu: the
+    doublings and adds of B4/B3): one warp per MSM runs the whole chain,
+    the independent products of each formula level on parallel lanes,
+    every MSM of one c in one launch.
 What the TPU needed for its lockstep rounds and VMEM (top-window alias
 blocks, packed x|y rows, a materialized round stream, host-loop round
 groups, flag-and-repair of in-bucket doublings) has no counterpart: a
@@ -31,7 +34,11 @@ kernel.
 Scalar values repeated at least HEAVY_COUNT_MIN times (about half of a
 circuit's wires hold bits, so the value 1 appears ~10^6 times) are split
 out: their points are summed by a tree of point adds and multiplied by the
-value on the host, so no bucket's run holds them.
+value on the host, so no bucket's run holds them. Every (table, heavy
+value) segment of a group is summed at once (`tree_sum_many`): blocked
+mixed adds (B2), one launch a round, then the fold (kernel point_fold,
+csrc/point_fold.cu: B3's adds as a block tree), at most two launches; the
+group's sums reach the host in one copy with its Horner sums.
 
 Each kernel's launcher sits beside its plain version here; CPU tensors take
 the plain version, CUDA tensors the kernel.
@@ -39,7 +46,7 @@ the plain version, CUDA tensors the kernel.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,9 +57,14 @@ from .curve import Jac, jac_add, jac_add_affine, jac_double
 N_BITS = 254
 HEAVY_COUNT_MIN = 256  # scalar values repeated at least this often split out
 TREE_BLOCK = 1 << 16  # lanes of the heavy-value tree sum
+FOLD_CHUNK = {1: 512, 2: 256}  # lanes a block of the fold kernel sums, by group
+FOLD_MAX_CHUNK = 512  # two lanes a thread, at most 256 threads a block
 PIECE = 32  # bucket entries per piece: one thread of B5/B6 each
 COMBINE_FAN_IN = 8  # sums one thread of B5/B6's combine adds, per level
 REDUCE_THREADS = 256  # threads per window in B7 (fewer when nb is smaller)
+
+# copies of MSM results to the host (each one waits on the device), by group
+HOST_SYNCS: Dict[str, int] = {}
 
 
 def auto_c(n: int) -> int:
@@ -425,78 +437,198 @@ def reduce(curve, buckets: Jac, nw: int, nb: int, threads: Optional[int] = None)
     return out
 
 
-def horner(curve, totals: Jac, c: int) -> Jac:
+# ---------------------------------------------------------------------------
+# Horner over windows (kernel msm_horner: B4 + B3) and its plain version
+# ---------------------------------------------------------------------------
+
+
+def horner_plain(curve, totals: Jac, c: int) -> Jac:
     """sum_w 2^(offset_w) T_w for window totals [m, nw] of m MSMs at once,
-    high window first: res = res * 2^(width_w) + T_w, i.e. width_w
-    doublings (B4) and one add (B3) per window. Returns [m] points."""
+    high window first: res = T_top, then per lower window width_w
+    doublings and one add res + T_w by the plain formulas. Returns [m]."""
     wins = windows(c)
     nw = len(wins)
-    res = tuple(t[:, nw - 1].contiguous() for t in totals)
+    ar = curve.arith(totals[0].device)
+    tot = tuple(L.u32(t) for t in totals)
+    res = tuple(t[:, nw - 1] for t in tot)
     for w in range(nw - 2, -1, -1):
         for _ in range(wins[w][1]):
-            res = curve.double(res)
-        res = curve.add(res, tuple(t[:, w].contiguous() for t in totals))
-    return res
+            res = jac_double(ar, res)
+        res = jac_add(ar, res, tuple(t[:, w] for t in tot))
+    return tuple(L.to_i32(t) for t in res)
+
+
+def horner(curve, totals: Jac, c: int) -> Jac:
+    """sum_w 2^(offset_w) T_w of window totals [m, nw] (B7's output of m
+    MSMs of window size c): one launch of msm_horner, a warp per MSM, on
+    the card; `horner_plain` on the CPU. Returns [m] points."""
+    if not totals[0].is_cuda:
+        return horner_plain(curve, totals, c)
+    nw, _nb = geometry(c)
+    cs = curve.coord_shape
+    m = totals[0].shape[0]
+    for t in totals:
+        if t.dtype != torch.int32 or tuple(t.shape) != (m, nw) + cs:
+            raise ValueError(f"window totals must be int32 [m, {nw}, {cs}]")
+    n_signed = sum(1 for _off, _width, signed in windows(c) if signed)
+    src = [t.contiguous() for t in totals]
+    out = tuple(torch.empty((m,) + cs, dtype=torch.int32, device=src[0].device) for _ in range(3))
+    if m:
+        _build.launch("zk_msm_horner", f"msm_horner_g{curve.group}", curve.group,
+                      *[t.data_ptr() for t in src], m, nw, c, n_signed,
+                      *[t.data_ptr() for t in out])
+    return out
 
 
 # ---------------------------------------------------------------------------
-# Heavy-value tree sums and the MSM entry points
+# Heavy-value tree sums: blocked mixed adds (B2), then the fold (kernel
+# point_fold: B3) and its plain version
 # ---------------------------------------------------------------------------
 
 
-def tree_sum_subset(curve, table, idx: torch.Tensor, offset: int = 0):
-    """Exact sum of table points at scalar indices idx (rows idx - offset,
-    absent rows skipped) by blocked mixed adds (B2) into a power-of-two
-    lane array and one halving fold (B3). Returns a host affine point or
-    None (port of `_tree_sum_subset` / `_lane_fold`)."""
-    rows = idx.to(torch.int64) - offset
-    rows = rows[(rows >= 0) & (rows < table.xs.shape[0])]
-    rows = rows[table.valid[rows]]
-    m = int(rows.shape[0])
-    if m == 0:
-        return None
-    width = min(TREE_BLOCK, 1 << (m - 1).bit_length())
-    pad = (-m) % width
-    rows = torch.cat([rows, torch.full((pad,), -1, dtype=torch.int64, device=rows.device)])
-    acc = curve.infinity((width,), rows.device)
-    for off in range(0, rows.shape[0], width):
-        blk = rows[off : off + width]
-        safe = blk.clamp(min=0)
-        acc = curve.add_affine(acc, table.xs[safe], table.ys[safe], blk >= 0)
+def fold_chunks(width: int, chunk: int) -> List[int]:
+    """Chunk widths of the fold's launches for `width` lanes a segment
+    (powers of two): at most `chunk` lanes a block, then the chunk sums."""
+    if width < 1 or width & (width - 1) or chunk < 2 or chunk & (chunk - 1):
+        raise ValueError(f"width {width} and chunk {chunk} must be powers of two, chunk >= 2")
+    out = []
     while width > 1:
-        width //= 2
-        acc = curve.add(tuple(t[:width] for t in acc), tuple(t[width:].contiguous() for t in acc))
-    return curve.decode_jac(acc)[0]
+        out.append(min(width, chunk))
+        width //= out[-1]
+    return out
+
+
+def fold_plain(curve, lanes: Jac, width: int, chunk: Optional[int] = None) -> Jac:
+    """Sum of each segment's `width` lanes ([S * width] -> [S]) in the fold
+    kernel's order: per chunk of C lanes, halving levels x_t += x_{t+h} for
+    h = C/2, ..., 1 (lower lane first), then the same over the chunk sums."""
+    chunk = FOLD_CHUNK[curve.group] if chunk is None else chunk
+    ar = curve.arith(lanes[0].device)
+    cs = curve.coord_shape
+    x = tuple(L.u32(t) for t in lanes)
+    for ch in fold_chunks(width, chunk):
+        x = tuple(t.reshape((-1, ch) + cs) for t in x)
+        while ch > 1:
+            ch //= 2
+            x = jac_add(ar, tuple(t[:, :ch] for t in x), tuple(t[:, ch : 2 * ch] for t in x))
+        x = tuple(t[:, 0] for t in x)
+    return tuple(L.to_i32(t) for t in x)
+
+
+def fold(curve, lanes: Jac, width: int, chunk: Optional[int] = None) -> Jac:
+    """Sums [S] of S segments of `width` lanes each ([S * width] points):
+    one launch of point_fold per chunk level on the card, `fold_plain` on
+    the CPU."""
+    chunk = FOLD_CHUNK[curve.group] if chunk is None else chunk
+    if not lanes[0].is_cuda:
+        return fold_plain(curve, lanes, width, chunk)
+    if chunk > FOLD_MAX_CHUNK:
+        raise ValueError(f"the fold kernel sums at most {FOLD_MAX_CHUNK} lanes a block")
+    cs = curve.coord_shape
+    n = lanes[0].shape[0]
+    levels = fold_chunks(width, chunk)
+    if n % width:
+        raise ValueError(f"{n} lanes are not whole segments of {width}")
+    for t in lanes:
+        if t.dtype != torch.int32 or tuple(t.shape) != (n,) + cs:
+            raise ValueError(f"lanes must be int32 [{n}, {cs}]")
+    x = tuple(t.contiguous() for t in lanes)
+    for ch in levels:
+        n //= ch
+        out = tuple(torch.empty((n,) + cs, dtype=torch.int32, device=x[0].device)
+                    for _ in range(3))
+        if n:
+            _build.launch("zk_point_fold", f"point_fold_g{curve.group}", curve.group,
+                          *[t.data_ptr() for t in x], n, ch, *[t.data_ptr() for t in out])
+        x = out
+    return x
+
+
+def tree_sum_many(curve, segments, block: int = TREE_BLOCK, chunk: Optional[int] = None) -> Jac:
+    """Exact sums [S] (Jacobian, on the device) of the table points at the
+    scalar indices of each segment (table, idx, offset): rows idx - offset,
+    absent rows skipped (port of `_tree_sum_subset` / `_lane_fold`, every
+    segment of a group at once). Each segment gets W lanes, W the widest
+    segment's power of two capped at `block`; round r adds the segment's
+    entries r W .. (r + 1) W - 1 by mixed adds (B2), one launch a round
+    over every segment that has them; then `fold` sums each segment's
+    lanes. Takes at least one segment; nothing here waits on the device."""
+    device = segments[0][1].device
+    counts = [int(idx.shape[0]) if table.xs.shape[0] else 0 for table, idx, _off in segments]
+    width = min(block, 1 << max(max(counts) - 1, 0).bit_length())
+    rounds = [-(-m // width) for m in counts]
+    order = sorted(range(len(segments)), key=lambda k: -rounds[k])  # round r: a prefix
+    gathered = []  # xs, ys, present [rounds * W] of each segment with entries, in `order`
+    for k in order[: sum(1 for r in rounds if r)]:
+        table, idx, off = segments[k]
+        rows = idx.to(torch.int64) - off
+        ok = (rows >= 0) & (rows < table.xs.shape[0])
+        rows = torch.where(ok, rows, 0)
+        ok &= table.valid[rows]
+        pad = rounds[k] * width - counts[k]
+        rows = torch.cat([rows, rows.new_zeros(pad)])
+        ok = torch.cat([ok, ok.new_zeros(pad)])
+        gathered.append((table.xs[rows], table.ys[rows], ok))
+    acc = curve.infinity((len(segments) * width,), device)
+    for r in range(max(rounds)):
+        act = sum(1 for k in order if rounds[k] > r)
+        sl = slice(r * width, (r + 1) * width)
+        xq, yq, ok = (torch.cat([g[i][sl] for g in gathered[:act]]) for i in range(3))
+        new = curve.add_affine(tuple(t[: act * width] for t in acc), xq, yq, ok)
+        if act < len(segments):
+            new = tuple(torch.cat([a, t[act * width :]]) for a, t in zip(new, acc))
+        acc = new
+    sums = fold(curve, acc, width, chunk)
+    if order == sorted(order):
+        return sums
+    back = sorted(range(len(order)), key=lambda i: order[i])  # no host-to-device copy
+    return tuple(torch.cat([t[i : i + 1] for i in back]) for t in sums)
+
+
+# ---------------------------------------------------------------------------
+# The MSM entry points
+# ---------------------------------------------------------------------------
 
 
 def msm_many(curve, jobs, host_add, host_mul) -> List:
-    """MSMs of several tables, each against a plan: jobs are (table, plan,
-    prefix_pad). Returns host affine points (None = infinity). MSMs with
-    the same window size share one reduction launch over all their windows
-    and one Horner pass. `prefix_pad` aligns a table that covers only a
-    suffix of the scalars (the C-query skips the n_public + 1 public
-    wires): scalar i meets table row i - prefix_pad."""
-    out: List = [None] * len(jobs)
-    extra: List = [None] * len(jobs)
-    by_c = {}
+    """MSMs of several tables of one group, each against a plan: jobs are
+    (table, plan, prefix_pad). Returns host affine points (None =
+    infinity). The heavy values of every job are summed together
+    (`tree_sum_many`); MSMs with the same window size share one reduction
+    launch over all their windows and one Horner launch; the group's
+    Horner sums and heavy sums reach the host in one copy. `prefix_pad`
+    aligns a table that covers only a suffix of the scalars (the C-query
+    skips the n_public + 1 public wires): scalar i meets table row
+    i - prefix_pad."""
+    segments, owners = [], []
     for i, (table, plan, pad) in enumerate(jobs):
         for val, sel in plan.heavy:
-            s = tree_sum_subset(curve, table, sel, pad)
-            if s is not None:
-                contrib = s if val == 1 else host_mul(s, val)
-                extra[i] = contrib if extra[i] is None else host_add(extra[i], contrib)
+            segments.append((table, sel, pad))
+            owners.append((i, val))
+    parts = [tree_sum_many(curve, segments)] if segments else []
+    by_c = {}
+    for i, (table, plan, pad) in enumerate(jobs):
         buckets = accumulate(curve, table.xs, table.ys, table.valid, pad, plan)
         by_c.setdefault(plan.c, []).append((i, buckets))
+    dest = []
     for c, items in by_c.items():
         nw, nb = geometry(c)
         buckets = tuple(torch.cat([b[k] for _, b in items]) for k in range(3))
         totals = reduce(curve, buckets, len(items) * nw, nb)
         totals = tuple(t.reshape((len(items), nw) + curve.coord_shape) for t in totals)
-        for (i, _), pt in zip(items, curve.decode_jac(horner(curve, totals, c))):
-            out[i] = pt
-    for i, e in enumerate(extra):
-        if e is not None:
-            out[i] = e if out[i] is None else host_add(out[i], e)
+        parts.append(horner(curve, totals, c))
+        dest += [i for i, _ in items]
+    pts = curve.decode_jac(tuple(torch.cat([p[k] for p in parts]) for k in range(3)))
+    key = f"msm_decode_g{curve.group}"
+    HOST_SYNCS[key] = HOST_SYNCS.get(key, 0) + 1
+    out: List = [None] * len(jobs)
+    for (i, val), s in zip(owners, pts):
+        if s is not None:
+            contrib = s if val == 1 else host_mul(s, val)
+            out[i] = contrib if out[i] is None else host_add(out[i], contrib)
+    for i, pt in zip(dest, pts[len(owners):]):
+        if pt is not None:
+            out[i] = pt if out[i] is None else host_add(out[i], pt)
     return out
 
 
