@@ -10,12 +10,20 @@ Phases, each printing a line:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: nvcc builds csrc/*.cu into build/torch_kernels/; the registers
      and spills of every MSM kernel (B5/B6's piece and combine kernels, B7,
-     Horner) and of the fold kernel from the ptxas log, on a line of their
-     own;
+     Horner), of the fold kernel and of the NTT pass kernel from the ptxas
+     log, on a line of their own;
   3. kernels vs plain, exact equality of limbs, with both times and each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its int32
      operations over the card's int32 issue rate):
-     B1 field ops on 2^20 Fq and Fr pairs plus 0, 1 and p - 1; B2-B4 point
+     B1 field ops on 2^20 Fq and Fr pairs plus every pair of carry-heavy
+     values (0, 1, 2, p - 1, p - 2, (p -+ 1) / 2, k limbs of 0xffffffff,
+     p - 2^32, 2^255 mod p: a - b = 0, a < b, a + b just under, at and just
+     over p), those pairs also against host integers, and products with one
+     operand that is not canonical (2^256 - 1, p, 2p - 1, ...) inside the
+     contract a.b < 2^256 p; the NTT pass kernel at the layer-one domain,
+     2^21, forward and inverse, against the per-stage plain version, with
+     the per-stage route through elementwise B1 launches (the port's
+     transform before the pass kernel) timed beside it; B2-B4 point
      ops on 2^16 G1 and G2 points plus infinity, P == Q, P == -Q and absent
      points; B8 fixed-base multiplication of 2^16 G1 and 2^14 G2 254-bit
      scalars with 0, 1, r - 1, r, 2^248, all digits equal and a top-window
@@ -71,10 +79,14 @@ Phases, each printing a line:
      ends, the kernels by device time, each launch's time of the MSM
      kernels (B5/B6 pieces and combine, B7), every point and chain kernel's
      device ms and launches (B2-B4, msm_horner, point_fold, B5-B7), the
-     prove's launch counts and its MSM copies to the host, and the peak
-     device memory. It fails unless the prove launched Horner twice (G1,
-     G2), the fold at most four times and copied MSM results to the host
-     at most twice. The trace goes to build/chip_smoke/prove_trace.json.
+     prove's launch counts and its MSM copies to the host, the quotient
+     phase's host clock, device time by kind (NTT passes, B1, other
+     kernels, copies) and launches (a profiler range per prove phase), and
+     the peak device memory. It fails unless the prove launched Horner
+     twice (G1, G2), the fold at most four times, copied MSM results to the
+     host at most twice, launched the NTT pass kernel at least once and at
+     most 7 x ceil(21 / TILE_LOG) times, and its quotient phase at most 6
+     B1 kernels. The trace goes to build/chip_smoke/prove_trace.json.
 The second-to-last line is a JSON object listing every kernel; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 """
@@ -94,6 +106,8 @@ RUN2 = os.path.join(REPO, "build", "recursive_run2")  # the workflow's inputs an
 GOLDEN = os.path.join(RUN2, "2_sigs_2_batches_5_height")
 BLIND = "0xB11DD1E5"
 LAYER_ONE_WIRES = 1_378_647  # witness length of layer one at 1 sig: the MSM plans' size
+LAYER_ONE_LOG_DOMAIN = 21  # its QAP domain, the size of every NTT of its prove
+QUOTIENT_B1_MAX = 6  # B1 launches the quotient phase keeps: to_mont x 3, A*B, - C, from_mont
 MSM_STAGES_LOG_N = 20  # the MSM stage harness's size, its default
 T0 = time.time()
 
@@ -113,6 +127,7 @@ KERNELS = {
     "field_mont_mul": ("csrc/field_ops.cu", "zkpoa_tpu/ops/pallas_field.py:297"),
     "field_add_mod": ("csrc/field_ops.cu", "zkpoa_tpu/ops/pallas_field.py:297"),
     "field_sub_mod": ("csrc/field_ops.cu", "zkpoa_tpu/ops/pallas_field.py:297"),
+    "ntt_pass": ("csrc/ntt.cu", "zkpoa_tpu/ops/pallas_field.py:297"),
     "point_add_affine_g1": ("csrc/point_ops.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "point_add_affine_g2": ("csrc/point_ops.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "point_add_g1": ("csrc/point_ops.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
@@ -255,18 +270,34 @@ def rand_field(torch, spec, n, gen, shape=()):
     return limbs.to(torch.int32)
 
 
+def field_edges(modulus: int):
+    """Canonical carry-heavy values: 0, 1, 2, p - 1, p - 2, (p -+ 1) / 2
+    (pairs summing just under, to and just over p), values of k limbs of
+    0xffffffff below p, p - 2^32 and 2^255 mod p; and operands that are not
+    canonical but keep a product inside the contract a.b < 2^256 p."""
+    canon = [0, 1, 2, modulus - 1, modulus - 2, (modulus - 1) // 2, (modulus + 1) // 2,
+             modulus - (1 << 32), (1 << 255) % modulus]
+    canon += [(1 << (32 * k)) - 1 for k in range(1, 8)]
+    wide = [(1 << 256) - 1, (1 << 256) - modulus, modulus, modulus + 1, 2 * modulus - 1,
+            1 << 255, (1 << 256) - (1 << 224)]
+    return canon, wide
+
+
 def check_field(torch, checks, gen):
+    from zkpoa_tpu_torch import host
     from zkpoa_tpu_torch.ops import field_kernels as FK
     from zkpoa_tpu_torch.ops import limbs as L
 
+    def lim(vals):
+        return torch.from_numpy(host.scalars_to_limbs_fast(vals)).to("cuda")
+
     n = 1 << 20
     for spec in (L.BN254_FQ, L.BN254_FR):
-        a = rand_field(torch, spec, n, gen)
-        b = rand_field(torch, spec, n, gen)
-        edge = spec.to_mont(torch.stack([spec.limbs_of(v, "cuda") for v in
-                                         (0, 1, spec.modulus - 1)]))
-        a = torch.cat([a, edge, edge])
-        b = torch.cat([b, edge, edge.flip(0)])
+        p = spec.modulus
+        canon, wide = field_edges(p)
+        pairs = [(x, y) for x in canon for y in canon]  # a - b = 0, a < b, a + b around p
+        a = torch.cat([rand_field(torch, spec, n, gen), lim([x for x, _ in pairs])])
+        b = torch.cat([rand_field(torch, spec, n, gen), lim([y for _, y in pairs])])
         tag = spec.name.split("_")[1]
         m = a.shape[0]
         for op, kname, plain, ops in ((FK.OP_MUL, "field_mont_mul", L.mont_mul_plain, MONT_OPS),
@@ -277,11 +308,83 @@ def check_field(torch, checks, gen):
             checks.record(f"{kname}[{tag}]", got, want,
                           lambda: FK.field_binop(spec, op, a, b), lambda: plain(spec, a, b),
                           (3 * 32 * m, ops * m))
-        # host cross-check of a few products
-        ints = lambda t: spec.decode(t)  # noqa: E731
-        xs, ys, zs = ints(a[-8:]), ints(b[-8:]), ints(L.mont_mul(spec, a[-8:], b[-8:]))
-        if zs != [x * y % spec.modulus for x, y in zip(xs, ys)]:
-            fail(f"mont_mul[{tag}] disagrees with host integers")
+        # the edge pairs against host integers
+        rinv = pow(1 << 256, -1, p)
+        ea, eb = a[n:], b[n:]
+        for op, fn in ((FK.OP_MUL, lambda x, y: x * y * rinv % p),
+                       (FK.OP_ADD, lambda x, y: (x + y) % p),
+                       (FK.OP_SUB, lambda x, y: (x - y) % p)):
+            if spec.from_limbs(FK.field_binop(spec, op, ea, eb)) != [fn(x, y) for x, y in pairs]:
+                fail(f"field op {op}[{tag}] disagrees with host integers on the edge cases")
+        # products with one operand not canonical, inside a.b < 2^256 p, both orders
+        wp = [(x, y) for x in wide for y in canon + wide if x * y < (p << 256)]
+        wp += [(y, x) for x, y in wp]
+        wa, wb = lim([x for x, _ in wp]), lim([y for _, y in wp])
+        got = FK.field_binop(spec, FK.OP_MUL, wa, wb)
+        if not torch.equal(got, L.mont_mul_plain(spec, wa, wb)) or spec.from_limbs(got) != [
+                x * y * rinv % p for x, y in wp]:
+            fail(f"mont_mul[{tag}] is wrong on operands that are not canonical")
+        log(f"field ops[{tag}]: {len(pairs)} edge pairs and {len(wp)} products with a "
+            f"non-canonical operand exact against host integers")
+
+
+def ntt_b1_stages(x, inverse):
+    """The per-stage route of the NTT through elementwise B1 launches (the
+    port's transform before the pass kernel), kept here as the pass
+    kernel's yardstick: per stage one mont_mul of the odd half by the stage
+    twiddles, an add and a sub, two copies and a stack."""
+    import torch
+
+    from zkpoa_tpu_torch.fields.bn254 import R
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    spec = L.BN254_FR
+    n = x.shape[0]
+    log_n = n.bit_length() - 1
+    x = x[N._bitrev(log_n, x.device)]
+    big = N._twiddles(log_n, inverse, x.device)
+    for s in range(log_n):
+        half = 1 << s
+        tw = big[:: n // (2 * half)]
+        xb = x.view(n // (2 * half), 2, half, 8)
+        u = xb[:, 0]
+        v = L.mont_mul(spec, xb[:, 1].contiguous(), tw.contiguous())
+        x = torch.stack([L.add_mod(spec, u, v), L.sub_mod(spec, u, v)], dim=1).view(n, 8)
+    if inverse:
+        x = L.mont_mul(spec, x, spec.encode([pow(n, -1, R)], x.device))
+    return x
+
+
+def check_ntt(torch, checks, gen, log_n):
+    """The pass kernel at the main path's domain, forward and inverse (1/n
+    in its last pass), against the per-stage plain version; the per-stage
+    B1 route timed beside it. Bound: n/2 log_n products (+ n for 1/n) of
+    256 int32 operations against the input, output and twiddle bytes."""
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    n = 1 << log_n
+    x = rand_field(torch, L.BN254_FR, n, gen)
+    out = {}
+    for inverse in (False, True):
+        kern = lambda: N.ntt(x, inverse)  # noqa: E731
+        plain = lambda: N.ntt_plain(x, inverse)  # noqa: E731
+        got = kern()
+        products = n // 2 * log_n + (n if inverse else 0)
+        name = f"ntt_pass[2^{log_n} {'inv' if inverse else 'fwd'}, t={N.TILE_LOG}]"
+        checks.record(name, got, plain(), kern, plain,
+                      (2 * 32 * n + 32 * n // 2, products * MONT_OPS), reps=10)
+        stages = lambda: ntt_b1_stages(x, inverse)  # noqa: E731
+        if not torch.equal(stages(), got):
+            fail(f"{name}: the per-stage B1 route disagrees with the pass kernel")
+        b1_ms = time_ms(torch, stages, 5)
+        checks.rows[name]["b1_stages_ms"] = b1_ms
+        out["inv" if inverse else "fwd"] = {"ms": checks.rows[name]["ms"], "b1_stages_ms": b1_ms,
+                                            "passes": len(N.ntt_passes(log_n, N.TILE_LOG))}
+        log(f"{name}: per-stage B1 route {b1_ms:.4f} ms ({3 * log_n + (1 if inverse else 0)} "
+            f"B1 launches); passes {out['inv' if inverse else 'fwd']['passes']}")
+    return out
 
 
 def check_points(torch, checks, gen):
@@ -778,15 +881,47 @@ def point_kernel_times(by_name) -> dict:
     return out
 
 
+B1_NAMES = ("field_mont_mul", "field_add_mod", "field_sub_mod")
+
+
+def quotient_split(trace, dev, phases, phase_counts) -> dict:
+    """The quotient phase of a profiled prove: its host clock, its device
+    time by kind (NTT passes, B1, other kernels, copies, memsets) from the
+    device events inside the phase's range, and its launch counts."""
+    qi = next(i for i, p in enumerate(phases) if p.startswith("prove: quotient"))
+    rng = next(e for e in trace["traceEvents"] if e.get("name") == f"chip_smoke_phase_{qi}"
+               and e.get("cat") == "user_annotation")
+    lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+    split = {}
+    for e in dev:
+        if not lo <= e["ts"] <= hi:
+            continue
+        if e["cat"] != "kernel":
+            kind = e["cat"].removeprefix("gpu_")
+        elif "ntt_pass_kernel" in e["name"]:
+            kind = "ntt_pass"
+        elif "field_binop_kernel" in e["name"]:
+            kind = "B1"
+        else:
+            kind = "other kernels"
+        ms, k = split.get(kind, (0.0, 0))
+        split[kind] = (ms + e["dur"] / 1e3, k + 1)
+    before = phase_counts[qi - 1] if qi else {}
+    launches = {k: v - before.get(k, 0) for k, v in phase_counts[qi].items()
+                if v - before.get(k, 0)}
+    return {"host_ms": rng["dur"] / 1e3, "device": split, "launches": launches}
+
+
 def profile_prove(torch):
     """A warm layer-one prove under torch.profiler: wall, device busy time
     and idle share, phase ends, kernels by device time, every point and
     chain kernel's device time and launches, the prove's launch counts and
     MSM copies to the host, peak memory."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from zkpoa_tpu_torch import _build
     from zkpoa_tpu_torch.ops import msm as M
+    from zkpoa_tpu_torch.ops import ntt as N
     from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
     from zkpoa_tpu_torch.prover import __main__ as cli
     from zkpoa_tpu_torch.prover import groth16
@@ -803,13 +938,26 @@ def profile_prove(torch):
         _sync("cuda")
         unprofiled.append(time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
-    phases = []
+    phases, phase_counts = [], []
+    ranges = [record_function("chip_smoke_phase_0")]
+
+    def on_phase(msg):
+        # a phase ends after a synchronize: close its range, snapshot the
+        # launch counts, open the next phase's range
+        ranges[-1].__exit__(None, None, None)
+        phases.append(msg)
+        phase_counts.append(dict(_build.COUNTS))
+        ranges.append(record_function(f"chip_smoke_phase_{len(phases)}"))
+        ranges[-1].__enter__()
+
     _build.reset_counts()
     M.HOST_SYNCS.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        proof = prove(pk, r1cs, witness, "cuda", log=phases.append)
+        ranges[0].__enter__()
+        proof = prove(pk, r1cs, witness, "cuda", log=on_phase)
         _sync("cuda")
+        ranges[-1].__exit__(None, None, None)
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = dict(_build.COUNTS)
@@ -846,6 +994,16 @@ def profile_prove(torch):
         f"{json.dumps(syncs, sort_keys=True)}")
     if not dev:
         fail("the profiled prove shows no device work")
+    quot = quotient_split(trace, dev, phases, phase_counts)
+    log(f"profile quotient phase: host {quot['host_ms']:.2f} ms; device "
+        + ", ".join(f"{k} {v[0]:.3f} ms / {v[1]}" for k, v in quot["device"].items())
+        + f"; launches {json.dumps(quot['launches'], sort_keys=True)}")
+    max_passes = 7 * -(-LAYER_ONE_LOG_DOMAIN // N.TILE_LOG)
+    b1_quot = sum(quot["launches"].get(k, 0) for k in B1_NAMES)
+    if not 0 < counts.get("ntt_pass", 0) <= max_passes or b1_quot > QUOTIENT_B1_MAX:
+        fail(f"a warm prove launched {counts.get('ntt_pass', 0)} NTT passes and its quotient "
+             f"phase {b1_quot} B1 launches: expected 1 to {max_passes} (7 transforms of "
+             f"ceil({LAYER_ONE_LOG_DOMAIN} / {N.TILE_LOG}) passes) and at most {QUOTIENT_B1_MAX}")
     horner = (counts.get("msm_horner_g1", 0), counts.get("msm_horner_g2", 0))
     folds = counts.get("point_fold_g1", 0) + counts.get("point_fold_g2", 0)
     if horner != (1, 1) or folds > 4 or sum(syncs.values()) > 2:
@@ -856,7 +1014,8 @@ def profile_prove(torch):
             "idle_share": 1 - busy / wall, "peak_bytes": peak, "phases": phases,
             "top": [[name, ms, n] for name, (ms, n) in top], "msm_launches_ms": msm_launches,
             "chain_kernels": {k: [ms, n] for k, (ms, n) in chain_kernels.items()},
-            "launches": counts, "msm_host_syncs": syncs}
+            "launches": counts, "msm_host_syncs": syncs, "quotient": quot,
+            "phase_launches": phase_counts}
 
 
 def ptxas_summary(path: str) -> str:
@@ -877,7 +1036,7 @@ def ptxas_summary(path: str) -> str:
 def ptxas_msm_kernels(path: str) -> dict:
     """Registers and spill stores/loads (bytes) of each MSM kernel entry
     (msm_piece / msm_combine / msm_reduce / msm_horner and point_fold, G1
-    and G2) from the ptxas log."""
+    and G2) and of the NTT pass kernel from the ptxas log."""
     import re
 
     out, cur, props = {}, None, None
@@ -886,9 +1045,9 @@ def ptxas_msm_kernels(path: str) -> dict:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
             if m:
                 name = m.group(1)
-                k = re.search(r"(msm_\w+?_kernel|point_fold_kernel)", name)
-                g = "G2" if "G2Field" in name else "G1"
-                props = f"{k.group(1)}<{g}>" if k else None
+                k = re.search(r"(msm_\w+?_kernel|point_fold_kernel|ntt_pass_kernel)", name)
+                g = "<G2>" if "G2Field" in name else "<G1>" if "G1Field" in name else ""
+                props = f"{k.group(1)}{g}" if k else None
                 if "Compiling entry" in line:
                     cur = props
                 continue
@@ -931,7 +1090,7 @@ def main() -> int:
     with open(_build.BUILD_INFO["log"]) as f, open(os.path.join(OUT_DIR, "ptxas.log"), "w") as g:
         g.write(f.read())
     msm_regs = ptxas_msm_kernels(_build.BUILD_INFO["log"])
-    log("ptxas MSM and fold kernels: " + "; ".join(
+    log("ptxas MSM, fold and NTT kernels: " + "; ".join(
         f"{k} {v.get('registers')} registers, spill stores {v.get('spill_stores')} B, "
         f"loads {v.get('spill_loads')} B" for k, v in sorted(msm_regs.items())))
 
@@ -942,6 +1101,7 @@ def main() -> int:
     check_points(torch, checks, gen)
     fb_stats = check_fixed_base(torch, checks)
     mont_ms = mont_latency(torch, checks, gen)
+    ntt_stats = check_ntt(torch, checks, gen, LAYER_ONE_LOG_DOMAIN)
     check_msm(torch, checks, gen)
     stats, counts_l1 = main_path(torch)
     with tempfile.TemporaryDirectory() as tmp:
@@ -961,6 +1121,7 @@ def main() -> int:
                    "kernels": checks.rows, "fixed_base": fb_stats, "msm": msm_stats,
                    "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,
                    "profile": prof, "ptxas_msm": msm_regs, "mont_latency_ms": mont_ms,
+                   "ntt": ntt_stats,
                    "device": name, "smi": smi},
                   f, indent=1)
 

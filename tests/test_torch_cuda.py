@@ -461,3 +461,109 @@ def test_mont_chain_probe_matches_plain(card):
     for _ in range(64):
         x = L.mont_mul_plain(L.BN254_FQ, x, a[1])
     assert torch.equal(FK.mont_chain(a[0], a[1], 64), x)
+
+
+def _field_edges(p):
+    """Canonical carry-heavy values and operands that are not canonical but
+    keep a product inside a.b < 2^256 p (as chip_smoke.py phase 3)."""
+    canon = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2, p - (1 << 32), (1 << 255) % p]
+    canon += [(1 << (32 * k)) - 1 for k in range(1, 8)]
+    wide = [(1 << 256) - 1, (1 << 256) - p, p, p + 1, 2 * p - 1, 1 << 255,
+            (1 << 256) - (1 << 224)]
+    return canon, wide
+
+
+@pytest.mark.parametrize("which", ["fq", "fr"])
+def test_field_core_on_carry_heavy_edge_cases(card, which):
+    """The PTX carry chains of field.cuh on every pair of edge values (a - b
+    = 0, a < b, a + b just under, at and just over p, all-ones limbs) and
+    on products with one non-canonical operand: equal to the plain
+    versions and to host integers."""
+    spec = L.BN254_FQ if which == "fq" else L.BN254_FR
+    p = spec.modulus
+    rinv = pow(1 << 256, -1, p)
+    canon, wide = _field_edges(p)
+    lim = lambda v: torch.from_numpy(host.scalars_to_limbs_fast(v)).to(card)  # noqa: E731
+    pairs = [(x, y) for x in canon for y in canon]
+    a, b = lim([x for x, _ in pairs]), lim([y for _, y in pairs])
+    for op, plain, fn in ((FK.OP_MUL, L.mont_mul_plain, lambda x, y: x * y * rinv % p),
+                          (FK.OP_ADD, L.add_mod_plain, lambda x, y: (x + y) % p),
+                          (FK.OP_SUB, L.sub_mod_plain, lambda x, y: (x - y) % p)):
+        got = FK.field_binop(spec, op, a, b)
+        assert torch.equal(got, plain(spec, a, b))
+        assert spec.from_limbs(got) == [fn(x, y) for x, y in pairs]
+    wp = [(x, y) for x in wide for y in canon + wide if x * y < (p << 256)]
+    wp += [(y, x) for x, y in wp]
+    wa, wb = lim([x for x, _ in wp]), lim([y for _, y in wp])
+    got = FK.field_binop(spec, FK.OP_MUL, wa, wb)
+    assert torch.equal(got, L.mont_mul_plain(spec, wa, wb))
+    assert spec.from_limbs(got) == [x * y * rinv % p for x, y in wp]
+    if which == "fq":  # the chains inside a point formula: doublings of edge coordinates
+        pts = tuple(lim(canon[k:] + canon[:k]) for k in range(3))
+        got = FK.point_double(1, pts)
+        for x, y in zip(got, run_plain(BN254_G1.arith(card), jac_double, pts)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("log_n", [1, 4, 10, 11, 12, 21])
+def test_ntt_kernel_matches_plain(card, log_n, inverse, monkeypatch):
+    """The pass kernel equals the per-stage plain version limb for limb, in
+    ceil(log_n / TILE_LOG) launches; and its schedule twin in tiles of 2^3."""
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(log_n)
+    n = 1 << log_n
+    x = L.to_i32(torch.randint(0, 2**32, (n, 8), generator=gen, device=card, dtype=torch.int64))
+    x[:, 7] &= 0x0FFFFFFF  # canonical: below 2^252 < r
+    N.ntt(x, inverse)  # the twiddle table is built by B1 launches once per device and size
+    _build.reset_counts()
+    got = N.ntt(x, inverse)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {"ntt_pass": -(-log_n // N.TILE_LOG)}
+    assert torch.equal(got, N.ntt_plain(x, inverse))
+    if log_n <= 12:
+        scale = L.BN254_FR.encode([pow(n, -1, bn254.R)], card) if inverse else None
+        monkeypatch.setattr(N, "TILE_LOG", 3)
+        assert torch.equal(N.ntt_kernel(x, inverse, scale),
+                           N.ntt_passes_plain(x, inverse, scale))
+
+
+@pytest.mark.parametrize("log_n", [4, 10, 12])
+def test_quotient_on_card_equals_cpu(card, log_n):
+    """quotient and coset_qap_evals through the pass kernel (folded scales)
+    equal the CPU's schedule twin; 7 and 6 transforms of ceil(log_n / 11)
+    passes, with 2 B1 launches (A*B, - C) besides."""
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    rng = np.random.default_rng(log_n)
+    ev = [L.BN254_FR.encode([int.from_bytes(rng.bytes(32), "big") % bn254.R
+                             for _ in range(1 << log_n)], "cpu") for _ in range(3)]
+    ev_card = [v.to(card) for v in ev]
+    N.quotient(*ev_card)  # tables are built by B1 launches once per device and size
+    N.coset_qap_evals(*ev_card)
+    passes = -(-log_n // N.TILE_LOG)
+    for fn, transforms in ((N.quotient, 7), (N.coset_qap_evals, 6)):
+        _build.reset_counts()
+        got = fn(*ev_card)
+        torch.cuda.synchronize()
+        assert _build.COUNTS == {"ntt_pass": transforms * passes, "field_mont_mul": 1,
+                                 "field_sub_mod": 1}
+        assert torch.equal(got.cpu(), fn(*ev))
+
+
+def test_ntt_kernel_refuses_what_it_cannot_take(card):
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    x = torch.zeros((16, 8), dtype=torch.int32, device=card)
+    _build.reset_counts()
+    with pytest.raises(ValueError):
+        N.ntt_kernel(x[:12])
+    with pytest.raises(ValueError):
+        N.ntt_kernel(x[::2])  # not contiguous
+    with pytest.raises(ValueError):
+        N.ntt_kernel(x, scale=x[:4])
+    with pytest.raises(ValueError):
+        N.ntt_kernel(x, scale=x.cpu())
+    assert _build.COUNTS == {}

@@ -11,21 +11,25 @@
 //
 // What bounds it: device-memory bandwidth for add/sub (96 bytes moved per
 // element) and the SMs' 32-bit multiply-add rate for the product (128 wide
-// multiply-adds per element). Simple correct version; speed is later work.
+// multiply-adds per element, on the carry chains of field.cuh).
 //
-// `b` broadcasts cyclically: element i uses b[i % b_n] (b_n = n for
-// elementwise, 1 for a scalar, h for an NTT stage's h twiddles).
+// `b` broadcasts in one of three modes, chosen per launch: b_n = n
+// (elementwise), b_n = 1 (one scalar for every element) or cyclic, element
+// i using b[i % b_n] (b_n divides n; a table repeated over a batch, as
+// Poseidon's MDS matrix and round constants). Indices are 32-bit: the
+// launcher takes n < 2^31, and only the cyclic mode pays for a modulo.
 #include "field.cuh"
 
 namespace zk {
 
 template <int F, int OP>
 __global__ void field_binop_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                                   uint32_t* __restrict__ out, long long n, long long b_n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                                   uint32_t* __restrict__ out, uint32_t n, uint32_t b_n) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  fe x = fe_load(a + i * 8);
-  fe y = fe_load(b + (i % b_n) * 8);
+  const uint32_t j = b_n == n ? i : b_n == 1 ? 0u : i % b_n;
+  fe x = fe_load(a + (size_t)i * 8);
+  fe y = fe_load(b + (size_t)j * 8);
   fe r;
   if (OP == 0) {
     r = fe_mul<F>(x, y);
@@ -34,14 +38,14 @@ __global__ void field_binop_kernel(const uint32_t* __restrict__ a, const uint32_
   } else {
     r = fe_sub<F>(x, y);
   }
-  fe_store(out + i * 8, r);
+  fe_store(out + (size_t)i * 8, r);
 }
 
 template <int F>
 static cudaError_t launch_binop(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
-                                long long n, long long b_n, cudaStream_t s) {
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
+                                uint32_t n, uint32_t b_n, cudaStream_t s) {
+  const uint32_t threads = 256;
+  const uint32_t blocks = (n + threads - 1) / threads;
   if (op == 0) field_binop_kernel<F, 0><<<blocks, threads, 0, s>>>(a, b, out, n, b_n);
   else if (op == 1) field_binop_kernel<F, 1><<<blocks, threads, 0, s>>>(a, b, out, n, b_n);
   else if (op == 2) field_binop_kernel<F, 2><<<blocks, threads, 0, s>>>(a, b, out, n, b_n);
@@ -76,12 +80,13 @@ extern "C" int zk_mont_chain(const void* a, const void* b, void* out, long long 
 extern "C" int zk_field_binop(int field, int op, const void* a, const void* b, void* out,
                               long long n, long long b_n, void* stream) {
   if (n <= 0) return 0;
-  if (b_n <= 0) return (int)cudaErrorInvalidValue;
+  if (n >= (1ll << 31) || b_n <= 0 || b_n > n || n % b_n != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto pa = static_cast<const uint32_t*>(a);
   auto pb = static_cast<const uint32_t*>(b);
   auto po = static_cast<uint32_t*>(out);
-  if (field == zk::FQ) return (int)zk::launch_binop<zk::FQ>(op, pa, pb, po, n, b_n, s);
-  if (field == zk::FR) return (int)zk::launch_binop<zk::FR>(op, pa, pb, po, n, b_n, s);
+  const uint32_t un = (uint32_t)n, ub = (uint32_t)b_n;
+  if (field == zk::FQ) return (int)zk::launch_binop<zk::FQ>(op, pa, pb, po, un, ub, s);
+  if (field == zk::FR) return (int)zk::launch_binop<zk::FR>(op, pa, pb, po, un, ub, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -40,14 +40,20 @@ def _check(t: torch.Tensor, name: str) -> None:
 
 
 def field_binop(spec: FieldSpec, op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise a*b*R^-1, a+b or a-b mod p over broadcast batches."""
+    """Elementwise a*b*R^-1, a+b or a-b mod p over broadcast batches. `b`
+    reaches the kernel as it is when its batch (leading 1s dropped) is a
+    suffix of the output batch: the kernel repeats it cyclically (one
+    scalar, a table per batch row, or elementwise), so only a broadcast
+    `a` is copied, and not even that for a commutative op whose `b` is
+    whole (the operands swap)."""
     _check(a, "a")
     _check(b, "b")
     if spec.kernel_id not in (0, 1):
         raise ValueError(f"no kernel for field {spec.name}")
     batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    if op != OP_SUB and tuple(a.shape[:-1]) != batch and tuple(b.shape[:-1]) == batch:
+        a, b = b, a
     a = a.expand(batch + (8,)).contiguous()
-    # b repeats cyclically when its batch is a suffix of the output batch
     bb = list(b.shape[:-1])
     while bb and bb[0] == 1:
         bb.pop(0)
@@ -55,6 +61,8 @@ def field_binop(spec: FieldSpec, op: int, a: torch.Tensor, b: torch.Tensor) -> t
         b = b.expand(batch + (8,))
     b = b.contiguous()
     n = a.numel() // 8
+    if n >= 1 << 31:
+        raise ValueError(f"field_binop takes fewer than 2^31 elements, got {n}")
     b_n = max(b.numel() // 8, 1)
     out = torch.empty(batch + (8,), dtype=torch.int32, device=a.device)
     _build.launch(
