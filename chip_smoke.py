@@ -8,10 +8,11 @@ and build a 2^20-leaf Merkle tree.
 
 Phases, each printing a line:
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: nvcc builds csrc/*.cu into build/torch_kernels/; the registers
-     and spills of every MSM kernel (B5/B6's piece and combine kernels, B7,
-     Horner), of the fold kernel and of the NTT pass kernel from the ptxas
-     log, on a line of their own;
+  2. build: nvcc builds csrc/*.cu into build/torch_kernels/; the registers,
+     stack frame and spills of every MSM kernel (B5/B6's piece and combine
+     kernels, B7, Horner), of the fold kernel, of the NTT pass kernel and of
+     the two kernels on the row-accumulation core (B8 fixed_base and the
+     heavy-value rounds) from the ptxas log, on a line of their own;
   3. kernels vs plain, exact equality of limbs, with both times and each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its int32
      operations over the card's int32 issue rate):
@@ -25,11 +26,16 @@ Phases, each printing a line:
      the per-stage route through elementwise B1 launches (the port's
      transform before the pass kernel) timed beside it; B2-B4 point
      ops on 2^16 G1 and G2 points plus infinity, P == Q, P == -Q and absent
-     points; B8 fixed-base multiplication of 2^16 G1 and 2^14 G2 254-bit
-     scalars with 0, 1, r - 1, r, 2^248, all digits equal and a top-window
+     points; B8 fixed-base multiplication of 2^16 G1 and 2^14 and 2^16 G2
+     254-bit scalars (G2 in both lane layouts) with 0, 1, r - 1, r, 2^248, all digits equal and a top-window
      P == Q among them (decoded points checked against host scalar
      multiplication, and the B2-loop route, 32 launches of B2, timed beside
-     it); accumulation of a G1 MSM at 2^16 and a G2 MSM at 2^14, both at
+     it); the heavy-value rounds kernel at a warm layer-one prove's shape
+     (G1 three tables, G2 one, 8 heavy runs each, 2^16 lanes a segment, the
+     widest run 9 rounds; rows out of range and not valid, P == Q and
+     P == -Q inside a lane), with the B2 rounds route (a B2 launch a round and
+     the re-concatenated lane array) timed beside it and equal to it;
+     accumulation of a G1 MSM at 2^16 and a G2 MSM at 2^14, both at
      the main path's window size (24 windows of 1024 buckets), with the
      plan's piece count and combine depth; reduction as the main path calls
      it, G1 over four MSMs' buckets (96 windows) in one launch and over one
@@ -68,27 +74,43 @@ Phases, each printing a line:
      time). The c = 11 run's whole-MSM stage is the G1 MSM at 2^20 in
      Mpoints/s. The launch counts of phases 4, 5 and 7 (each reset just
      before it) must together be non-zero for every kernel of a path;
-     B3/B4 run on the path inside msm_horner and point_fold, and the
-     elementwise point_add / point_double, which no path calls any more,
-     are checked in phase 3 only (so marked in the kernels line);
+     B2-B4 run on the path inside heavy_rounds, msm_horner and point_fold,
+     and the elementwise point_add_affine / point_add / point_double, which
+     no path calls any more, are checked in phase 3 only (so marked in the
+     kernels line);
   8. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
      4 random leaves and their proofs checked with the host Poseidon;
-  9. profile: one more layer-one key and three proofs, the last under
-     torch.profiler; prints its wall time, the device's busy time as the
-     union of kernel, memcpy and memset intervals, the idle share, the phase
-     ends, the kernels by device time, each launch's time of the MSM
-     kernels (B5/B6 pieces and combine, B7), every point and chain kernel's
-     device ms and launches (B2-B4, msm_horner, point_fold, B5-B7), the
-     prove's launch counts and its MSM copies to the host, the quotient
-     phase's host clock, device time by kind (NTT passes, B1, other
-     kernels, copies) and launches (a profiler range per prove phase), and
-     the peak device memory. It fails unless the prove launched Horner
-     twice (G1, G2), the fold at most four times, copied MSM results to the
-     host at most twice, launched the NTT pass kernel at least once and at
-     most 7 x ceil(21 / TILE_LOG) times, and its quotient phase at most 6
-     B1 kernels. The trace goes to build/chip_smoke/prove_trace.json.
+  9. profile: one more layer-one key under torch.profiler (the setup
+     profile: wall, device busy, B8's device ms, launches and bound from
+     the chunks' non-zero digits, and the B1 launches and device ms of the
+     Jacobian-to-affine conversion of each chunk, each conversion and B8
+     call in a range entered and left after a synchronize), then three
+     proofs, the last under torch.profiler; prints its wall time, the
+     device's busy time as the union of kernel, memcpy and memset
+     intervals, the idle share, the phase ends, the kernels by device time,
+     each launch's time of the MSM kernels (B5/B6 pieces and combine, B7),
+     every point and chain kernel's device ms and launches (the rounds,
+     msm_horner, point_fold, B5-B7), the prove's launch counts and its MSM
+     copies to the host, the quotient phase's host clock, device time by
+     kind (NTT passes, B1, other kernels, copies) and launches (a profiler
+     range per prove phase), the gathers and copies (index gathers, cat and
+     copy kernels, memcpys), and the peak device memory. It fails unless
+     the prove launched Horner twice (G1, G2), the rounds kernel once a
+     group and the elementwise B2 never, the fold at most four times,
+     copied MSM results to the host at most twice, launched the NTT pass
+     kernel at least once and at most 7 x ceil(21 / TILE_LOG) times, and
+     its quotient phase at most 6 B1 kernels. Then the rounds kernel is
+     held against its plain version at the prove's own heavy segments,
+     with the bound from the entries they add. The trace goes to
+     build/chip_smoke/prove_trace.json.
 The second-to-last line is a JSON object listing every kernel; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
+
+    python3 chip_smoke.py --setup-profile ROOT
+
+runs only the setup profile of phase 9, on the zkpoa_tpu_torch package of
+the checkout at ROOT (this tree's, or a parent's unpacked with git
+archive), and prints it as one JSON line: an A/B of setup on one card.
 """
 
 import contextlib
@@ -144,14 +166,23 @@ KERNELS = {
     "point_fold_g2": ("csrc/point_fold.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "fixed_base_g1": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
     "fixed_base_g2": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
+    "heavy_rounds_g1": ("csrc/heavy_rounds.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
+    "heavy_rounds_g2": ("csrc/heavy_rounds.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "gather_smem_rows": ("csrc/gather.cu", "experiments/msm_stages.py:91"),
     "gather_smem_vec": ("csrc/gather.cu", "experiments/msm_stages.py:110"),
     "gather_async": ("csrc/gather.cu", "experiments/msm_stages.py:150"),
 }
-# The elementwise B3/B4 that no path calls since Horner and the heavy-value
-# fold have kernels of their own: held against their plain versions in
-# phase 3 only. B3 and B4 run on the paths inside msm_horner and point_fold.
-PHASE3_ONLY = {"point_add_g1", "point_add_g2", "point_double_g1", "point_double_g2"}
+# The elementwise B2-B4 that no path calls since Horner, the heavy-value
+# fold (B3/B4) and the heavy-value rounds (B2) have kernels of their own:
+# held against their plain versions in phase 3 only. B2-B4 run on the paths
+# inside heavy_rounds, msm_horner and point_fold.
+PHASE3_ONLY = {"point_add_g1", "point_add_g2", "point_double_g1", "point_double_g2",
+               "point_add_affine_g1", "point_add_affine_g2"}
+# Heavy runs of phase 3's rounds check (entries of each of 8 heavy values),
+# shaped like a warm layer-one prove's: the widest takes 9 rounds of 2^16
+# lanes (9 B2 launches a group before the rounds kernel)
+HEAVY_RUNS = (560_000, 70_000, 20_000, 6_000, 2_000, 1_200, 600, 300)
+HEAVY_PAD = 3  # a prefix pad for the c table, as the c-query has one (n_public + 1)
 
 # The bound of a kernel is the larger of its bytes over the memory rate and
 # its int32 operations over the issue rate (NVIDIA H100 SXM data sheet and
@@ -471,7 +502,8 @@ def fixed_base_b2_loop(ops, base, host_add, scalars, n_bits):
 
 def check_fixed_base(torch, checks):
     """B8 against its plain version at setup's 254 bits: G1 at 2^16 and G2
-    at 2^14 scalars, edge cases first; a few decoded against the host."""
+    at 2^14 (three threads a scalar: one wave) and 2^16 scalars (a thread a
+    scalar), edge cases first; a few decoded against the host."""
     import numpy as np
 
     from zkpoa_tpu_torch import host
@@ -487,8 +519,10 @@ def check_fixed_base(torch, checks):
     rng = np.random.default_rng(1)
     out = {}
     for curve, base, add, mul, log_n in ((BN254_G1, bn254.G1_GEN, bn254.g1_add, bn254.g1_mul, 16),
-                                         (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 14)):
+                                         (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 14),
+                                         (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 16)):
         n, g = 1 << log_n, curve.group
+        name = f"fixed_base_g{g}" + ("[2^16]" if (g, log_n) == (2, 16) else "")
         scal = edge + [int.from_bytes(rng.bytes(32), "big") % r for _ in range(n - len(edge))]
         sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
         tab = fixed_base_device_table(curve, base, add, 254, sc.device)
@@ -500,15 +534,168 @@ def check_fixed_base(torch, checks):
         cb = COORD_BYTES[g]
         work = (nwin * 256 * (2 * cb + 1) + n * (32 + 3 * cb),
                 digits * PRODUCTS["add_affine"][g] * MONT_OPS)
-        checks.record(f"fixed_base_g{g}", got, plain(), kern, plain, work, reps=5)
+        checks.record(name, got, plain(), kern, plain, work, reps=5)
         pick = list(range(len(edge))) + [len(edge), n - 1]
         dec = curve.decode_jac(tuple(t[pick] for t in got))
         if dec != [mul(base, scal[i]) for i in pick]:
-            fail(f"fixed_base_g{g} disagrees with host scalar multiplication")
+            fail(f"{name} disagrees with host scalar multiplication")
         b2 = time_ms(torch, lambda: fixed_base_b2_loop(curve, base, add, sc, 254), 3)
-        out[f"g{g}"] = {"n": n, "b8_ms": checks.rows[f"fixed_base_g{g}"]["ms"], "b2_loop_ms": b2}
+        out[f"g{g}_2^{log_n}"] = {"n": n, "b8_ms": checks.rows[name]["ms"], "b2_loop_ms": b2}
         log(f"fixed_base_g{g} at 2^{log_n}: host decode of {len(pick)} points exact; "
             f"B2-loop route {b2:.3f} ms")
+    return out
+
+
+def rounds_b2_route(curve, segments, width):
+    """The heavy-value rounds as the port ran them before the rounds kernel
+    (`tree_sum_many` without its fold), kept here as the kernel's
+    yardstick: the segments' rows gathered and padded to whole rounds,
+    then per round one B2 launch over every segment that has entries, the
+    lane array re-concatenated around it. Returns lanes [S * width] in
+    segment order."""
+    import torch
+
+    counts = [int(idx.shape[0]) if table.xs.shape[0] else 0 for table, idx, _off in segments]
+    rounds = [-(-m // width) for m in counts]
+    order = sorted(range(len(segments)), key=lambda k: -rounds[k])
+    gathered = []
+    for k in order[: sum(1 for r in rounds if r)]:
+        table, idx, off = segments[k]
+        rows = idx.to(torch.int64) - off
+        ok = (rows >= 0) & (rows < table.xs.shape[0])
+        rows = torch.where(ok, rows, 0)
+        ok &= table.valid[rows]
+        pad = rounds[k] * width - counts[k]
+        rows = torch.cat([rows, rows.new_zeros(pad)])
+        ok = torch.cat([ok, ok.new_zeros(pad)])
+        gathered.append((table.xs[rows], table.ys[rows], ok))
+    acc = curve.infinity((len(segments) * width,), segments[0][1].device)
+    for r in range(max(rounds)):
+        act = sum(1 for k in order if rounds[k] > r)
+        sl = slice(r * width, (r + 1) * width)
+        xq, yq, ok = (torch.cat([g[i][sl] for g in gathered[:act]]) for i in range(3))
+        new = curve.add_affine(tuple(t[: act * width] for t in acc), xq, yq, ok)
+        if act < len(segments):
+            new = tuple(torch.cat([a, t[act * width :]]) for a, t in zip(new, acc))
+        acc = new
+    back = sorted(range(len(order)), key=lambda i: order[i])
+    return tuple(t.view((len(segments), width) + t.shape[1:])[back].view(t.shape) for t in acc)
+
+
+class _Rows:
+    def __init__(self, xs, ys, valid):
+        self.xs, self.ys, self.valid = xs, ys, valid
+
+
+def check_heavy_rounds(torch, checks, gen):
+    """The heavy-value rounds kernel against its plain version at a warm
+    layer-one prove's shape: G1 over three tables (the third a suffix of the
+    second at a prefix pad, as the c-query), G2 over one, each with the
+    HEAVY_RUNS index runs (sorted distinct scalar indices, some past the
+    table); 2^16 lanes a segment, the widest run 9 rounds. Random
+    coordinates with one row in a thousand not valid; lane 0 of the widest
+    run adds one row twice (P == Q), lane 1 a row and its negation
+    (P == -Q). The B2 rounds route (a B2 launch a round) must give the same
+    lanes and is timed beside the kernel. Bound: the entries this run adds
+    (rows present), each an index, a row and a mixed add, and the lanes
+    written."""
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops import msm as M
+    from zkpoa_tpu_torch.ops.curve import BN254_G1
+    from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+
+    n, width = LAYER_ONE_WIRES, M.TREE_BLOCK
+    out = {}
+    for curve, n_tab in ((BN254_G1, 3), (BN254_G2, 1)):
+        g = curve.group
+        shape = curve.coord_shape[:-1]
+        runs = [torch.randperm(n + 64, generator=gen, device="cuda")[:m].sort().values
+                for m in HEAVY_RUNS]
+        wide = runs[0]
+        wide[width] = wide[0]  # lane 0: the same row twice
+        base = []
+        for k in range(min(n_tab, 2)):
+            xs = rand_field(torch, curve.field, n, gen, shape)
+            ys = rand_field(torch, curve.field, n, gen, shape)
+            valid = torch.rand(n, generator=gen, device="cuda") > 1e-3
+            r1, r2 = int(wide[1]), int(wide[width + 1])  # lane 1: a row, then its negation
+            if r1 < n and r2 < n:
+                xs[r2] = xs[r1]
+                ys[r2] = L.sub_mod_plain(curve.field, torch.zeros_like(ys[r1]), ys[r1])
+                valid[r1] = valid[r2] = True
+            base.append(_Rows(xs, ys, valid))
+        tables = base if n_tab == 1 else base + [
+            _Rows(base[1].xs[HEAVY_PAD:], base[1].ys[HEAVY_PAD:], base[1].valid[HEAVY_PAD:])]
+        segments = [(t, idx, HEAVY_PAD if k == 2 else 0)
+                    for k, t in enumerate(tables) for idx in runs]
+        kern = lambda: M.heavy_rounds(curve, segments, width)  # noqa: E731
+        plain = lambda: M.heavy_rounds_plain(curve, segments, width)  # noqa: E731
+        got = kern()
+        b2 = rounds_b2_route(curve, segments, width)
+        if max_abs_err(torch, got, b2) != 0:
+            fail(f"heavy_rounds_g{g}: the rounds kernel disagrees with the B2 rounds route")
+        entries, added, n_bytes, n_ops = rounds_work(torch, curve, segments, width)
+        name = f"heavy_rounds_g{g}[{len(segments)} x 2^16 lanes]"
+        checks.record(name, got, plain(), kern, plain, (n_bytes, n_ops), reps=10)
+        b2_ms = time_ms(torch, lambda: rounds_b2_route(curve, segments, width), 5)
+        rounds = -(-max(HEAVY_RUNS) // width)
+        checks.rows[name]["b2_rounds_ms"] = b2_ms
+        out[f"g{g}"] = {"segments": len(segments), "entries": entries, "added": added,
+                        "rounds": rounds, "ms": checks.rows[name]["ms"], "b2_rounds_ms": b2_ms}
+        log(f"{name}: {entries} entries, {added} added; the B2 rounds route ({rounds} B2 launches, "
+            f"gathers and concatenations) {b2_ms:.4f} ms, equal lanes")
+        del segments, tables, base, runs, got, b2
+    return out
+
+
+def rounds_work(torch, curve, segments, width):
+    """(entries, entries added, bytes, int32 operations) of the rounds over
+    these segments: an index read per entry, a row (x, y, valid) and a
+    mixed add per entry present, every lane written once."""
+    added = 0
+    for t, idx, off in segments:
+        rows = idx - off
+        ok = (rows >= 0) & (rows < t.xs.shape[0])
+        added += int((ok & t.valid[torch.where(ok, rows, 0)]).sum())
+    entries = sum(int(idx.shape[0]) for _t, idx, _o in segments)
+    cb = COORD_BYTES[curve.group]
+    return (entries, added, 8 * entries + added * (2 * cb + 1) + 3 * cb * len(segments) * width,
+            added * PRODUCTS["add_affine"][curve.group] * MONT_OPS)
+
+
+def check_prove_rounds(torch, checks, pk, witness):
+    """The rounds kernel at a warm layer-one prove's own segments (phase
+    9, after the profiled prove): the witness plan's heavy values over the
+    a, b1 and c tables (the c-query at its prefix pad) and over b2, as
+    `prove` passes them to `msm_many`; against its plain version, with the
+    bound from the entries these segments add."""
+    from zkpoa_tpu_torch import host
+    from zkpoa_tpu_torch.fields.bn254 import R
+    from zkpoa_tpu_torch.ops import msm as M
+    from zkpoa_tpu_torch.ops.curve import BN254_G1
+    from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+
+    w = torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in witness])).to("cuda")
+    heavy, _mask = M._heavy_split(w)
+    pads = ((pk.a_query, 0), (pk.b1_query, 0), (pk.c_query, pk.n_public + 1))
+    out = {"heavy_counts": [int(sel.shape[0]) for _v, sel in heavy]}
+    if not heavy:
+        fail("the layer-one witness has no heavy values: the prove ran no rounds")
+    for curve, segments in ((BN254_G1, [(t, sel, pad) for t, pad in pads for _v, sel in heavy]),
+                            (BN254_G2, [(pk.b2_query, sel, 0) for _v, sel in heavy])):
+        counts = [int(idx.shape[0]) for _t, idx, _o in segments]
+        width = min(M.TREE_BLOCK, 1 << max(max(counts) - 1, 0).bit_length())
+        entries, added, n_bytes, n_ops = rounds_work(torch, curve, segments, width)
+        kern = lambda: M.heavy_rounds(curve, segments, width)  # noqa: E731
+        plain = lambda: M.heavy_rounds_plain(curve, segments, width)  # noqa: E731
+        name = f"heavy_rounds_g{curve.group}[prove: {len(segments)} segments]"
+        checks.record(name, kern(), plain(), kern, plain, (n_bytes, n_ops), reps=10)
+        out[f"g{curve.group}"] = {"segments": len(segments), "width": width, "entries": entries,
+                                  "added": added, "rounds": -(-max(counts) // width),
+                                  **checks.rows[name]}
+        log(f"{name}: {entries} entries, {added} added, {width} lanes a segment, "
+            f"{-(-max(counts) // width)} rounds")
+    log(f"profile heavy values of the prove: {len(heavy)}, entries {out['heavy_counts']}")
     return out
 
 
@@ -868,16 +1055,18 @@ def kernel_times(dev) -> dict:
 
 def point_kernel_times(by_name) -> dict:
     """(device ms, launches) of every point and chain kernel: B2-B4
-    elementwise, Horner, the fold, B5-B7, by group."""
+    elementwise, the rounds, Horner, the fold, B5-B7, B8, by group."""
     import re
 
     out = {}
     for name, (ms, n) in by_name.items():
         k = re.search(r"(add_affine_kernel|add_kernel|double_kernel|msm_horner_kernel|"
                       r"point_fold_kernel|msm_piece_kernel|msm_combine_kernel|"
-                      r"msm_reduce_kernel)<zk::(G[12])Field>", name)
-        if k:
-            out[f"{k.group(1)}<{k.group(2)}>"] = (ms, n)
+                      r"msm_reduce_kernel|heavy_rounds_kernel|fixed_base_kernel)"
+                      r"<zk::(G1|G2)(Field|Tri)>", name)
+        if k:  # G2Tri: the G2 formulas on three threads a lane (row_accum.cuh)
+            layout = k.group(2) + ("Tri" if k.group(3) == "Tri" else "")
+            out[f"{k.group(1)}<{layout}>"] = (ms, n)
     return out
 
 
@@ -912,11 +1101,156 @@ def quotient_split(trace, dev, phases, phase_counts) -> dict:
     return {"host_ms": rng["dur"] / 1e3, "device": split, "launches": launches}
 
 
-def profile_prove(torch):
+def copy_gather_split(dev) -> dict:
+    """(device ms, count) of the device events that move data rather than
+    compute: index gathers (`t[idx]`, index_select), cat and copy kernels,
+    and memcpys by direction; the heavy-value sums' rounds added a gather
+    and a concatenation per round before the rounds kernel."""
+    split = {}
+    for e in dev:
+        name = e["name"]
+        if e["cat"] == "gpu_memcpy":
+            kind = name.split("(")[0].strip()  # Memcpy HtoD / DtoH / DtoD
+        elif "gather_kernel" in name or "indexSelect" in name or "index_elementwise" in name:
+            kind = "index gathers"
+        elif "CatArrayBatchedCopy" in name or "direct_copy_kernel" in name:
+            kind = "cat and copy kernels"
+        else:
+            continue
+        ms, k = split.get(kind, (0.0, 0))
+        split[kind] = (ms + e["dur"] / 1e3, k + 1)
+    return split
+
+
+def profile_setup(torch, r1cs) -> dict:
+    """One setup_device of the circuit under torch.profiler: wall, device
+    busy, B8's device ms and launches by group with its bound (the chunks'
+    non-zero 8-bit digits, each a mixed add, the table read once and each
+    scalar and point once), and the Jacobian-to-affine conversion of every
+    chunk (a Fermat inversion on B1 launches): its B1 launches and device
+    ms, its other kernels and copies. Each B8 call and each conversion runs
+    in a range of its own, entered and left after a synchronize, so that
+    its device events lie inside it (the syncs add a few ms to the wall)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.prover import setup as S
+
+    names = ("fixed_base_mul_batch", "jac_to_affine_mont", "g2_jac_to_affine_mont")
+    saved = {k: getattr(S, k) for k in names}
+    calls, digits = [], []
+
+    def wrap(kind, fn):
+        def inner(*args):
+            torch.cuda.synchronize()
+            before = dict(_build.COUNTS)
+            with record_function(f"chip_smoke_setup_{kind}_{len(calls)}"):
+                out = fn(*args)
+                torch.cuda.synchronize()
+            after = dict(_build.COUNTS)
+            calls.append((kind, {k: v - before.get(k, 0) for k, v in after.items()
+                                 if v != before.get(k, 0)}))
+            return out
+        return inner
+
+    def b8(ops, base, host_add, scalars, n_bits):
+        digits.append((ops.group, scalars.shape[0],
+                       (scalars.contiguous().view(torch.uint8) != 0).sum()))
+        return wrap("b8", saved["fixed_base_mul_batch"])(ops, base, host_add, scalars, n_bits)
+
+    S.fixed_base_mul_batch = b8
+    S.jac_to_affine_mont = wrap("affine_g1", saved["jac_to_affine_mont"])
+    S.g2_jac_to_affine_mont = wrap("affine_g2", saved["g2_jac_to_affine_mont"])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pk = S.setup_device(r1cs, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(S, k, fn)
+    path = os.path.join(OUT_DIR, "setup_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    del pk
+    return {"wall_s": wall, **setup_split(trace, calls, [(g, n, int(d)) for g, n, d in digits])}
+
+
+def setup_split(trace, calls, digits) -> dict:
+    """The setup profile's numbers from its chrome trace, the launch-count
+    differences of its B8 and conversion calls, and (group, scalars,
+    non-zero digits) of each B8 call."""
+    dev = device_events(trace)
+    if not dev:
+        fail("the profiled setup shows no device work")
+    busy = busy_us(dev) / 1e6
+    ranges = [e for e in trace["traceEvents"] if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("chip_smoke_setup_")]
+    b8_ms = {}
+    for e in dev:
+        if "fixed_base_kernel" in e["name"]:
+            g = "g2" if "G2" in e["name"] else "g1"
+            ms, k, each = b8_ms.get(g, (0.0, 0, []))
+            b8_ms[g] = (ms + e["dur"] / 1e3, k + 1, each + [round(e["dur"] / 1e3, 4)])
+    conv = {}  # group -> kind -> (device ms, events)
+    for rng in ranges:
+        kind = rng["name"].split("_")[3]  # b8 or affine
+        if kind != "affine":
+            continue
+        g = rng["name"].split("_")[4]
+        lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+        for e in dev:
+            if not lo <= e["ts"] <= hi:
+                continue
+            what = ("B1" if "field_binop_kernel" in e["name"] else
+                    "other kernels" if e["cat"] == "kernel" else e["cat"].removeprefix("gpu_"))
+            ms, k = conv.setdefault(g, {}).get(what, (0.0, 0))
+            conv[g][what] = (ms + e["dur"] / 1e3, k + 1)
+    launches = {}
+    for kind, diff in calls:
+        tot = launches.setdefault(kind, {})
+        for k, v in diff.items():
+            tot[k] = tot.get(k, 0) + v
+    work = {}  # B8's chunks, non-zero digits and bound by group
+    for g in (1, 2):
+        cb = COORD_BYTES[g]
+        runs = [(n, d) for grp, n, d in digits if grp == g]
+        if runs:
+            n_bytes = sum(32 * 256 * (2 * cb + 1) + n * (32 + 3 * cb) for n, _d in runs)
+            n_ops = sum(d for _n, d in runs) * PRODUCTS["add_affine"][g] * MONT_OPS
+            work[f"g{g}"] = {"chunks": [n for n, _d in runs], "digits": sum(d for _n, d in runs),
+                             "bound": list(bound(n_bytes, n_ops))}
+    return {"busy_s": busy,
+            "b8": {g: {"ms": ms, "launches": k, "each_ms": each, **work.get(g, {})}
+                  for g, (ms, k, each) in b8_ms.items()},
+            "affine": {g: {kind: list(v) for kind, v in d.items()} for g, d in conv.items()},
+            "launches": launches, "device_events": len(dev)}
+
+
+def log_setup_profile(prof: dict) -> None:
+    log(f"profile setup: wall {prof['wall_s']:.3f} s, device busy {prof['busy_s']:.3f} s "
+        f"({prof['device_events']} device events), idle "
+        f"{100 * (1 - prof['busy_s'] / prof['wall_s']):.1f} %")
+    for g, v in sorted(prof["b8"].items()):
+        b = v.get("bound", [float("nan"), "?"])
+        log(f"profile setup B8 {g}: {v['ms']:.3f} ms in {v['launches']} launches "
+            f"(each {v['each_ms']} ms; chunks {v.get('chunks')}, {v.get('digits')} non-zero "
+            f"digits); bound {b[0]:.3f} ms ({b[1]}), share of bound {100 * b[0] / v['ms']:.0f} %")
+    for g, d in sorted(prof["affine"].items()):
+        log(f"profile setup Jacobian-to-affine {g}: " + ", ".join(
+            f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in sorted(d.items()))
+            + f"; launches {json.dumps(prof['launches'].get('affine_' + g, {}), sort_keys=True)}")
+
+
+def profile_prove(torch, checks):
     """A warm layer-one prove under torch.profiler: wall, device busy time
     and idle share, phase ends, kernels by device time, every point and
     chain kernel's device time and launches, the prove's launch counts and
-    MSM copies to the host, peak memory."""
+    MSM copies to the host, peak memory; then the rounds kernel at the
+    prove's own heavy segments (`check_prove_rounds`)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from zkpoa_tpu_torch import _build
@@ -930,6 +1264,8 @@ def profile_prove(torch):
 
     circuit, _name = cli._build_circuit("one", layer_one_input(parse_signatures_file(SIGS)), False)
     r1cs, witness = circuit.compile()
+    setup_prof = profile_setup(torch, r1cs)
+    log_setup_profile(setup_prof)
     pk = setup_device(r1cs, "cuda")
     unprofiled = []
     for _ in range(2):
@@ -965,6 +1301,7 @@ def profile_prove(torch):
     if not groth16.verify(groth16.VerifyingKey.from_json(pk.vk_json), proof,
                           circuit.public_values):
         fail("the profiled proof does not verify")
+    prove_rounds = check_prove_rounds(torch, checks, pk, witness)
     path = os.path.join(OUT_DIR, "prove_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -990,6 +1327,9 @@ def profile_prove(torch):
         log(f"profile {name} per launch ms: {[round(t, 3) for t in times]}")
     log("profile point and chain kernels, device ms / launches: " + "; ".join(
         f"{k} {ms:.3f} / {n}" for k, (ms, n) in sorted(chain_kernels.items())))
+    moves = copy_gather_split(dev)
+    log("profile gathers and copies, device ms / count: " + "; ".join(
+        f"{k} {ms:.3f} / {n}" for k, (ms, n) in sorted(moves.items())))
     log(f"profile launches: {json.dumps(counts, sort_keys=True)}; MSM copies to the host: "
         f"{json.dumps(syncs, sort_keys=True)}")
     if not dev:
@@ -1005,15 +1345,20 @@ def profile_prove(torch):
              f"phase {b1_quot} B1 launches: expected 1 to {max_passes} (7 transforms of "
              f"ceil({LAYER_ONE_LOG_DOMAIN} / {N.TILE_LOG}) passes) and at most {QUOTIENT_B1_MAX}")
     horner = (counts.get("msm_horner_g1", 0), counts.get("msm_horner_g2", 0))
+    rounds = (counts.get("heavy_rounds_g1", 0), counts.get("heavy_rounds_g2", 0))
+    b2 = counts.get("point_add_affine_g1", 0) + counts.get("point_add_affine_g2", 0)
     folds = counts.get("point_fold_g1", 0) + counts.get("point_fold_g2", 0)
-    if horner != (1, 1) or folds > 4 or sum(syncs.values()) > 2:
-        fail(f"a warm prove launched Horner {horner} times (G1, G2), the fold {folds} times "
-             f"and copied MSM results to the host {sum(syncs.values())} times: expected "
-             f"(1, 1), at most 4 and at most 2")
+    if horner != (1, 1) or rounds != (1, 1) or b2 or folds > 4 or sum(syncs.values()) > 2:
+        fail(f"a warm prove launched Horner {horner} times (G1, G2), the rounds kernel "
+             f"{rounds} times, the elementwise B2 {b2} times, the fold {folds} times and copied "
+             f"MSM results to the host {sum(syncs.values())} times: expected (1, 1), (1, 1), 0, "
+             f"at most 4 and at most 2")
     return {"unprofiled_s": unprofiled, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / wall, "peak_bytes": peak, "phases": phases,
             "top": [[name, ms, n] for name, (ms, n) in top], "msm_launches_ms": msm_launches,
             "chain_kernels": {k: [ms, n] for k, (ms, n) in chain_kernels.items()},
+            "gathers_copies": {k: [ms, n] for k, (ms, n) in moves.items()}, "setup": setup_prof,
+            "prove_rounds": prove_rounds,
             "launches": counts, "msm_host_syncs": syncs, "quotient": quot,
             "phase_launches": phase_counts}
 
@@ -1034,9 +1379,10 @@ def ptxas_summary(path: str) -> str:
 
 
 def ptxas_msm_kernels(path: str) -> dict:
-    """Registers and spill stores/loads (bytes) of each MSM kernel entry
-    (msm_piece / msm_combine / msm_reduce / msm_horner and point_fold, G1
-    and G2) and of the NTT pass kernel from the ptxas log."""
+    """Registers, stack frame and spill stores/loads (bytes) of each MSM
+    kernel entry (msm_piece / msm_combine / msm_reduce / msm_horner and
+    point_fold, G1 and G2), of the NTT pass kernel and of the kernels on the
+    row-accumulation core (fixed_base, heavy_rounds) from the ptxas log."""
     import re
 
     out, cur, props = {}, None, None
@@ -1045,23 +1391,63 @@ def ptxas_msm_kernels(path: str) -> dict:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
             if m:
                 name = m.group(1)
-                k = re.search(r"(msm_\w+?_kernel|point_fold_kernel|ntt_pass_kernel)", name)
-                g = "<G2>" if "G2Field" in name else "<G1>" if "G1Field" in name else ""
+                k = re.search(r"(msm_\w+?_kernel|point_fold_kernel|ntt_pass_kernel|"
+                              r"fixed_base_kernel|heavy_rounds_kernel)", name)
+                g = ("<G2Tri>" if "G2Tri" in name else "<G2>" if "G2Field" in name
+                     else "<G1>" if "G1Field" in name else "")
                 props = f"{k.group(1)}{g}" if k else None
                 if "Compiling entry" in line:
                     cur = props
                 continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
             if m and props:
-                out.setdefault(props, {}).update(spill_stores=int(m.group(1)),
-                                                 spill_loads=int(m.group(2)))
+                out.setdefault(props, {}).update(stack_frame=int(m.group(1)),
+                                                 spill_stores=int(m.group(2)),
+                                                 spill_loads=int(m.group(3)))
             m = re.search(r"Used (\d+) registers", line)
             if m and cur:
                 out.setdefault(cur, {})["registers"] = int(m.group(1))
     return out
 
 
+def setup_profile_main(root: str) -> int:
+    """`--setup-profile ROOT`: the setup profile of phase 9 alone, on the
+    zkpoa_tpu_torch package under ROOT, after one unprofiled setup of the
+    same circuit (tables encoded, kernels loaded); one JSON line."""
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "zkpoa_tpu_torch", "csrc")):
+        fail(f"no zkpoa_tpu_torch package under {root}")
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
+    from zkpoa_tpu_torch.prover import __main__ as cli
+    from zkpoa_tpu_torch.prover.setup import setup_device
+
+    if not _build.__file__.startswith(root + os.sep):
+        fail(f"zkpoa_tpu_torch came from {_build.__file__}, not from {root}")
+    _build.lib()
+    circuit, _name = cli._build_circuit("one", layer_one_input(parse_signatures_file(SIGS)), False)
+    r1cs, _witness = circuit.compile()
+    setup_device(r1cs, "cuda")
+    torch.cuda.synchronize()
+    prof = profile_setup(torch, r1cs)
+    log_setup_profile(prof)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"root": root, "smi": smi, "setup": prof}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--setup-profile":
+        return setup_profile_main(sys.argv[2])
     if not os.path.isdir(os.path.join(REPO, "zkpoa_tpu_torch", "csrc")):
         fail("the zkpoa_tpu_torch package is not beside this script")
     try:
@@ -1090,9 +1476,10 @@ def main() -> int:
     with open(_build.BUILD_INFO["log"]) as f, open(os.path.join(OUT_DIR, "ptxas.log"), "w") as g:
         g.write(f.read())
     msm_regs = ptxas_msm_kernels(_build.BUILD_INFO["log"])
-    log("ptxas MSM, fold and NTT kernels: " + "; ".join(
-        f"{k} {v.get('registers')} registers, spill stores {v.get('spill_stores')} B, "
-        f"loads {v.get('spill_loads')} B" for k, v in sorted(msm_regs.items())))
+    log("ptxas MSM, fold, NTT and row-accumulation kernels: " + "; ".join(
+        f"{k} {v.get('registers')} registers, stack frame {v.get('stack_frame')} B, spill "
+        f"stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B"
+        for k, v in sorted(msm_regs.items())))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1100,6 +1487,7 @@ def main() -> int:
     check_field(torch, checks, gen)
     check_points(torch, checks, gen)
     fb_stats = check_fixed_base(torch, checks)
+    rounds_stats = check_heavy_rounds(torch, checks, gen)
     mont_ms = mont_latency(torch, checks, gen)
     ntt_stats = check_ntt(torch, checks, gen, LAYER_ONE_LOG_DOMAIN)
     check_msm(torch, checks, gen)
@@ -1114,11 +1502,12 @@ def main() -> int:
     if missing:
         fail(f"kernels not launched by the layer-one, workflow and msm_stages phases: {missing}")
     merkle = merkle_2p20(torch)
-    prof = profile_prove(torch)
+    prof = profile_prove(torch, checks)
     with open(os.path.join(OUT_DIR, "stats.json"), "w") as f:
         json.dump({"main_path": stats, "launches": counts, "launches_layer_one": counts_l1,
                    "launches_workflow": counts_wf, "launches_msm_stages": counts_ms,
-                   "kernels": checks.rows, "fixed_base": fb_stats, "msm": msm_stats,
+                   "kernels": checks.rows, "fixed_base": fb_stats, "heavy_rounds": rounds_stats,
+                   "msm": msm_stats,
                    "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,
                    "profile": prof, "ptxas_msm": msm_regs, "mont_latency_ms": mont_ms,
                    "ntt": ntt_stats,

@@ -404,9 +404,10 @@ def test_fold_kernel_matches_plain(card, curve, width, chunk):
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
 def test_msm_many_heavy_sums_on_card(card, curve):
     """msm_many with two heavy values over two tables (one at a prefix
-    pad): one Horner launch, at most two fold launches, one B2 launch per
-    round, one copy to the host; the totals equal the host MSMs and the
-    heavy sums equal the CPU's."""
+    pad): one Horner launch, at most two fold launches, one launch of the
+    rounds kernel for the group and none of the elementwise B2, one copy
+    to the host; the totals equal the host MSMs and the heavy sums equal
+    the CPU's."""
     base, add, mul = _group(curve)
     n, pad = 600, 40
     table, pts = _table(curve, base, add, mul, n, 70)
@@ -423,7 +424,8 @@ def test_msm_many_heavy_sums_on_card(card, curve):
     g = curve.group
     assert _build.COUNTS[f"msm_horner_g{g}"] == 1
     assert 1 <= _build.COUNTS[f"point_fold_g{g}"] <= 2
-    assert _build.COUNTS[f"point_add_affine_g{g}"] == 1  # 280 entries fit one round of 512 lanes
+    assert _build.COUNTS[f"heavy_rounds_g{g}"] == 1  # every segment of the group in one launch
+    assert f"point_add_affine_g{g}" not in _build.COUNTS
     assert f"point_add_g{g}" not in _build.COUNTS and f"point_double_g{g}" not in _build.COUNTS
     assert M.HOST_SYNCS == {f"msm_decode_g{g}": 1}
     for k, off in enumerate((0, pad)):
@@ -567,3 +569,174 @@ def test_ntt_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError):
         N.ntt_kernel(x, scale=x.cpu())
     assert _build.COUNTS == {}
+
+
+class _Rows:
+    def __init__(self, xs, ys, valid):
+        self.xs, self.ys, self.valid = xs, ys, valid
+
+
+def _rounds_edge_case(curve, device):
+    """Segments (table, idx, offset) with W = 16, as in
+    tests/test_torch_row_accum.py: 37 entries with P == Q (lane 0) and
+    P == -Q (lane 1) inside a lane, an index past the table and a row that
+    is not valid; exactly W entries at an offset with indices before it;
+    an empty segment; only absent rows; an empty table; 20 entries with
+    P == Q in lane 2. Returns the segments and the host sums."""
+    base, add, mul = _group(curve)
+    neg = bn254.g1_neg if curve.group == 1 else bn254.g2_neg
+    rng = np.random.default_rng(81)
+    pts = [mul(base, int(k)) for k in rng.integers(1, 2**40, size=40)]
+    pts[7] = neg(pts[6])
+    pts[11] = None
+    pts2 = pts[::-1]
+    t1 = _Rows(*curve.encode_affine(pts, device))
+    t2 = _Rows(*curve.encode_affine(pts2, device))
+    t0 = _Rows(*curve.encode_affine([], device))
+    idx0 = [int(i) for i in rng.integers(0, 40, size=37)]
+    idx0[0], idx0[16], idx0[1], idx0[17], idx0[33] = 5, 5, 6, 7, 9
+    idx0[4], idx0[20] = 45, 11
+    idx1 = [0, 1, 2] + [int(i) + 3 for i in rng.integers(0, 40, size=13)]
+    idx5 = [int(i) + 3 for i in rng.integers(0, 40, size=20)]
+    idx5[2] = idx5[18] = 23
+    segs = [(t1, idx0, 0), (t2, idx1, 3), (t1, [], 0), (t1, [11, 40, 51], 0), (t0, [0, 1], 0),
+            (t2, idx5, 3)]
+    tab_pts = {id(t1): pts, id(t2): pts2, id(t0): []}
+    want = []
+    for t, idx, off in segs:
+        acc = None
+        for i in idx:
+            r = i - off
+            if 0 <= r < len(tab_pts[id(t)]) and tab_pts[id(t)][r] is not None:
+                acc = add(acc, tab_pts[id(t)][r])
+        want.append(acc)
+    segments = [(t, torch.tensor(i, dtype=torch.int64, device=device), off) for t, i, off in segs]
+    return segments, want
+
+
+def _cpu_segments(segments):
+    return [(_Rows(t.xs.cpu(), t.ys.cpu(), t.valid.cpu()), idx.cpu(), off)
+            for t, idx, off in segments]
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_heavy_rounds_kernel_matches_plain_on_edge_cases(card, curve):
+    """The rounds kernel (csrc/heavy_rounds.cu) on the edge-case segments:
+    one launch, lanes equal to heavy_rounds_plain's on the CPU limb for
+    limb, and tree_sum_many's sums equal to the host sums."""
+    segments, want = _rounds_edge_case(curve, card)
+    _build.reset_counts()
+    lanes = M.heavy_rounds(curve, segments, 16)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {f"heavy_rounds_g{curve.group}": 1}
+    for a, b in zip(lanes, M.heavy_rounds_plain(curve, _cpu_segments(segments), 16)):
+        assert torch.equal(a.cpu(), b)
+    assert curve.decode_jac(M.tree_sum_many(curve, segments, block=16)) == want
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_heavy_rounds_kernel_at_the_prove_shape(card, curve):
+    """W = 2^16 lanes a segment, as a warm prove: random coordinates, three
+    tables (the third a suffix of the first at a prefix pad, as the
+    c-query), runs of 150000, 65536, 3000 and 300 sorted indices per table
+    with rows out of range and rows not valid, P == Q planted in lane 0;
+    one launch, equal to the plain version on the card."""
+    n, pad = 1 << 18, 40
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    shape = (n,) + curve.coord_shape[:-1]
+    xs = _rand(curve.field, shape, 91).to(card)
+    ys = _rand(curve.field, shape, 92).to(card)
+    valid = torch.rand(n, generator=gen, device=card) > 0.01
+    tabs = [_Rows(xs, ys, valid), _Rows(xs.flip(0).contiguous(), ys.flip(0).contiguous(), valid),
+            _Rows(xs[pad:], ys[pad:], valid[pad:])]
+    segments = []
+    for k, table in enumerate(tabs):
+        for m in (150000, 65536, 3000, 300):
+            idx = torch.randperm(n + 50, generator=gen, device=card)[:m].sort().values
+            if m == 150000:
+                idx[65536] = idx[0]  # lane 0 adds the same row twice: P == Q
+            segments.append((table, idx, pad if k == 2 else 0))
+    _build.reset_counts()
+    got = M.heavy_rounds(curve, segments, 1 << 16)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {f"heavy_rounds_g{curve.group}": 1}
+    for a, b in zip(got, M.heavy_rounds_plain(curve, segments, 1 << 16)):
+        assert torch.equal(a, b)
+
+
+def test_heavy_rounds_splits_past_its_launch_limits(card):
+    """70 segments over 10 tables take more than one launch (at most
+    ROUNDS_MAX_SEGS segments over ROUNDS_MAX_TABLES tables each) and give
+    the plain version's lanes."""
+    curve = BN254_G1
+    tabs = [_Rows(_rand(curve.field, (50,), 100 + k).to(card),
+                  _rand(curve.field, (50,), 200 + k).to(card),
+                  torch.ones(50, dtype=torch.bool, device=card)) for k in range(10)]
+    rng = np.random.default_rng(7)
+    segments = [(tabs[k % 10], torch.tensor(rng.integers(0, 55, size=int(rng.integers(0, 20))),
+                                            dtype=torch.int64, device=card), k % 3)
+                for k in range(70)]
+    keys = [(t.xs.data_ptr(), t.ys.data_ptr(), t.valid.data_ptr(), 50) for t, _i, _o in segments]
+    _build.reset_counts()
+    got = M.heavy_rounds(curve, segments, 8)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {"heavy_rounds_g1": len(M._rounds_launches(keys))} and \
+        len(M._rounds_launches(keys)) > 1
+    for a, b in zip(got, M.heavy_rounds_plain(curve, segments, 8)):
+        assert torch.equal(a, b)
+
+
+def test_heavy_rounds_refuses_what_it_cannot_take(card):
+    """A CUDA table takes the kernel or raises: indices of another dtype or
+    device, a table of another dtype, a non-contiguous table, a valid mask
+    that does not match the table, a width that is not a power of two; no
+    launch is counted."""
+    curve = BN254_G1
+    xs = _rand(curve.field, (64,), 1).to(card)
+    ys = _rand(curve.field, (64,), 2).to(card)
+    valid = torch.ones(64, dtype=torch.bool, device=card)
+    idx = torch.arange(20, dtype=torch.int64, device=card)
+    bad = [
+        [(_Rows(xs, ys, valid), idx.to(torch.int32), 0)],
+        [(_Rows(xs, ys, valid), idx.cpu(), 0)],
+        [(_Rows(xs.to(torch.int64), ys, valid), idx, 0)],
+        [(_Rows(xs[::2], ys[::2], valid[::2]), idx, 0)],
+        [(_Rows(xs, ys, valid[:63]), idx, 0)],
+        [(_Rows(xs, ys[:63], valid), idx, 0)],
+        [(_Rows(xs, ys, valid), idx[::2], 0)],
+    ]
+    _build.reset_counts()
+    for segments in bad:
+        with pytest.raises(ValueError):
+            M.heavy_rounds(curve, segments, 16)
+    with pytest.raises(ValueError):
+        M.heavy_rounds(curve, [(_Rows(xs, ys, valid), idx, 0)], 12)
+    assert _build.COUNTS == {}
+
+
+@pytest.mark.parametrize("n", [1003, 1 << 16])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_fixed_base_kernel_on_sparse_and_ragged_scalars(card, curve, n):
+    """B8 where most scalars are zero (whole warps vote every window out),
+    small scalars (one non-zero digit), and counts that fill neither a G1
+    warp (32 lanes) nor a G2 warp of triples (10): equal to the plain
+    version, and decoded to host multiples. G2 takes both lane layouts: 1003
+    scalars fit one wave of triples, 2^16 take a thread a scalar."""
+    base, add, mul = _group(curve)
+    rng = np.random.default_rng(9)
+    scal = [0] * n
+    for i in range(0, n, 37):
+        scal[i] = int.from_bytes(rng.bytes(32), "big") % bn254.R
+    scal[500:520] = [int(k) for k in rng.integers(1, 256, size=20)]
+    scal[-1] = bn254.R - 1
+    sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card)
+    table = fixed_base_device_table(curve, base, add, 254, sc.device)
+    _build.reset_counts()
+    got = fixed_base_mul_batch(curve, base, add, sc, 254)
+    assert _build.COUNTS == {f"fixed_base_g{curve.group}": 1}
+    for a, b in zip(got, fixed_base_plain(curve, *table, sc, 254)):
+        assert torch.equal(a, b)
+    pick = [0, 1, 37, 500, 519, n - 1]
+    assert curve.decode_jac(tuple(t[pick] for t in got)) == [
+        mul(base, scal[i]) if scal[i] else None for i in pick]

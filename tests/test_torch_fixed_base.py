@@ -21,7 +21,8 @@ from zkpoa_tpu.ops import msm as jax_msm
 from zkpoa_tpu.ops.fp2_jax import BN254_G2 as JG2
 from zkpoa_tpu_torch import host
 from zkpoa_tpu_torch.fields import bn254
-from zkpoa_tpu_torch.ops.curve import BN254_G1, fixed_base_mul_batch
+from zkpoa_tpu_torch.ops.curve import (BN254_G1, fixed_base_device_table, fixed_base_mul_batch,
+                                       fixed_base_plain)
 from zkpoa_tpu_torch.ops.fp2 import BN254_G2
 
 torch.set_num_threads(1)
@@ -61,3 +62,21 @@ def test_fixed_base_plain_matches_jax_and_host(case, n_bits):
         curve_jax.fixed_base_mul_batch_pallas(jcurve, name, base, add, jsc, n_bits))
     assert got == want
     assert got == [mul(base, k % R) for k in scalars]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_fixed_base_twin_matches_jax_fixed_base_mul_batch(case):
+    """`fixed_base_plain`, the twin of kernel B8 (csrc/fixed_base.cu on the
+    row-accumulation core), at setup's 254 bits against the JAX package's
+    `curve_jax.fixed_base_mul_batch` (w = 8) on the edge scalars 0, 1,
+    r - 1, r (P == -Q in the top window), 2^248, all digits equal and
+    98 * 2^248 - r (P == Q in the top window), then random ones."""
+    _, curve, jcurve, name, base, add, mul = case
+    scalars = edge_scalars(254, 32, seed=254)
+    sc = torch.from_numpy(host.scalars_to_limbs_fast(scalars))
+    table = fixed_base_device_table(curve, base, add, 254, sc.device)
+    got = fixed_base_plain(curve, *table, sc, 254)
+    jsc = jnp.asarray(jax_msm.scalars_to_limbs(scalars))
+    want = jcurve.decode_jac(curve_jax.fixed_base_mul_batch(jcurve, name, base, add, jsc, 254))
+    assert curve.decode_jac(got) == want
+    assert want[:4] == [None, base, mul(base, R - 1), None]

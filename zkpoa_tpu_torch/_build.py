@@ -67,6 +67,9 @@ SIGNATURES = {
     "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # fixed_base.cu: (group, tx, ty, tvalid, scalars, nwin, n, ox, oy, oz, stream)
     "zk_fixed_base": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
+    # heavy_rounds.cu: (group, n_tables, tables, n_seg, segs, log_w, ox, oy, oz, stream),
+    # tables and segs host int64 arrays
+    "zk_heavy_rounds": [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     # gather.cu: (tab, idx, T, W, M, out, stream)
     "zk_gather_smem_rows": [_P, _P, _L, _I, _L, _P, _P],
     "zk_gather_smem_vec": [_P, _P, _L, _I, _L, _P, _P],

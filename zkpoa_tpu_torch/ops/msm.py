@@ -35,10 +35,12 @@ Scalar values repeated at least HEAVY_COUNT_MIN times (about half of a
 circuit's wires hold bits, so the value 1 appears ~10^6 times) are split
 out: their points are summed by a tree of point adds and multiplied by the
 value on the host, so no bucket's run holds them. Every (table, heavy
-value) segment of a group is summed at once (`tree_sum_many`): blocked
-mixed adds (B2), one launch a round, then the fold (kernel point_fold,
-csrc/point_fold.cu: B3's adds as a block tree), at most two launches; the
-group's sums reach the host in one copy with its Horner sums.
+value) segment of a group is summed at once (`tree_sum_many`): each lane
+of a segment mixed-adds its run of table rows (kernel heavy_rounds,
+csrc/heavy_rounds.cu: B2's adds on the row-accumulation core), one launch
+a group, then the fold (kernel point_fold, csrc/point_fold.cu: B3's adds
+as a block tree), at most two launches; the group's sums reach the host
+in one copy with its Horner sums.
 
 Each kernel's launcher sits beside its plain version here; CPU tensors take
 the plain version, CUDA tensors the kernel.
@@ -46,6 +48,7 @@ the plain version, CUDA tensors the kernel.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -62,6 +65,8 @@ FOLD_MAX_CHUNK = 512  # two lanes a thread, at most 256 threads a block
 PIECE = 32  # bucket entries per piece: one thread of B5/B6 each
 COMBINE_FAN_IN = 8  # sums one thread of B5/B6's combine adds, per level
 REDUCE_THREADS = 256  # threads per window in B7 (fewer when nb is smaller)
+ROUNDS_MAX_SEGS = 64  # segments one launch of heavy_rounds takes (csrc/heavy_rounds.cu)
+ROUNDS_MAX_TABLES = 8  # distinct tables one launch of heavy_rounds reads
 
 # copies of MSM results to the host (each one waits on the device), by group
 HOST_SYNCS: Dict[str, int] = {}
@@ -481,8 +486,8 @@ def horner(curve, totals: Jac, c: int) -> Jac:
 
 
 # ---------------------------------------------------------------------------
-# Heavy-value tree sums: blocked mixed adds (B2), then the fold (kernel
-# point_fold: B3) and its plain version
+# Heavy-value tree sums: the rounds (kernel heavy_rounds: B2's mixed adds),
+# then the fold (kernel point_fold: B3), and their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -544,45 +549,120 @@ def fold(curve, lanes: Jac, width: int, chunk: Optional[int] = None) -> Jac:
     return x
 
 
+def _rounds_counts(segments) -> List[int]:
+    """Entries of each segment (table, idx, offset): 0 for an empty table."""
+    return [int(idx.shape[0]) if table.xs.shape[0] else 0 for table, idx, _off in segments]
+
+
+def heavy_rounds_plain(curve, segments, width: int) -> Jac:
+    """Lanes [S * width] of the heavy-value rounds in plain torch (int64):
+    lane l of segment s (table, idx, off) sums the table rows
+    idx[l] - off, idx[width + l] - off, ... by mixed adds from infinity in
+    that order, skipping rows out of the table's range or not valid. Round r
+    adds entry r * width + l of every segment that has one, so each lane's
+    adds are those of the kernel, in its order."""
+    device = segments[0][0].xs.device
+    ar = curve.arith(device)
+    counts = _rounds_counts(segments)
+    acc = _inf64(curve, (len(segments) * width,), device)
+    for r in range(max(-(-m // width) for m in counts)):
+        lanes, xq, yq, ok = [], [], [], []
+        for s, ((table, idx, off), m) in enumerate(zip(segments, counts)):
+            lo, hi = r * width, min(m, (r + 1) * width)
+            if hi <= lo:
+                continue
+            rows = idx[lo:hi].to(torch.int64) - off
+            present = (rows >= 0) & (rows < table.xs.shape[0])
+            rows = torch.where(present, rows, 0)
+            lanes.append(s * width + torch.arange(hi - lo, device=device))
+            xq.append(L.u32(table.xs[rows]))
+            yq.append(L.u32(table.ys[rows]))
+            ok.append(present & table.valid[rows])
+        lanes = torch.cat(lanes)
+        new = jac_add_affine(ar, tuple(t[lanes] for t in acc), torch.cat(xq), torch.cat(yq),
+                             torch.cat(ok))
+        for t, nt in zip(acc, new):
+            t[lanes] = nt
+    return tuple(L.to_i32(t) for t in acc)
+
+
+def _rounds_launches(keys: List[tuple]) -> List[Tuple[int, int]]:
+    """[start, end) of consecutive segments (table keys in order) that one
+    launch of heavy_rounds takes: at most ROUNDS_MAX_SEGS segments over at
+    most ROUNDS_MAX_TABLES tables."""
+    out, start, tabs = [], 0, set()
+    for k, key in enumerate(keys):
+        if k - start == ROUNDS_MAX_SEGS or (key not in tabs and len(tabs) == ROUNDS_MAX_TABLES):
+            out.append((start, k))
+            start, tabs = k, set()
+        tabs.add(key)
+    out.append((start, len(keys)))
+    return out
+
+
+def heavy_rounds(curve, segments, width: int) -> Jac:
+    """Lanes [S * width] of the heavy-value sums: lane l of segment s sums
+    rows idx[l], idx[width + l], ... of its table (`heavy_rounds_plain`).
+    One launch of heavy_rounds (csrc/heavy_rounds.cu) for every segment of
+    the group on the card (more only past ROUNDS_MAX_SEGS segments or
+    ROUNDS_MAX_TABLES tables); the plain version for CPU tables. The
+    range check and the valid lookup run in the kernel; nothing here waits
+    on the device or copies to it."""
+    if width < 1 or width & (width - 1) or width > 1 << 24:
+        raise ValueError(f"width must be a power of two up to 2^24, got {width}")
+    if not segments:
+        raise ValueError("heavy_rounds takes at least one segment")
+    if not segments[0][0].xs.is_cuda:
+        return heavy_rounds_plain(curve, segments, width)
+    cs = curve.coord_shape
+    device = segments[0][0].xs.device
+    n_lanes = len(segments) * width
+    if n_lanes >= 1 << 31:
+        raise ValueError(f"{n_lanes} lanes: heavy_rounds takes fewer than 2^31")
+    keys = []
+    for table, idx, off in segments:
+        n = table.xs.shape[0]
+        for name, t in (("xs", table.xs), ("ys", table.ys)):
+            if (t.device != device or t.dtype != torch.int32 or tuple(t.shape) != (n,) + cs
+                    or not t.is_contiguous()):
+                raise ValueError(f"table {name} must be contiguous int32 [{n}, {cs}] on {device}")
+            if n and t.data_ptr() % 16:
+                raise ValueError(f"table {name} must be 16-byte aligned")
+        v = table.valid
+        if v.device != device or v.dtype != torch.bool or tuple(v.shape) != (n,) \
+                or not v.is_contiguous():
+            raise ValueError(f"table valid must be a contiguous bool [{n}] on {device}")
+        if (idx.device != device or idx.dtype != torch.int64 or idx.dim() != 1
+                or not idx.is_contiguous() or idx.shape[0] >= 1 << 31):
+            raise ValueError(f"segment indices must be a contiguous int64 run on {device}")
+        keys.append((table.xs.data_ptr(), table.ys.data_ptr(), v.data_ptr(), n))
+    out = tuple(torch.empty((n_lanes,) + cs, dtype=torch.int32, device=device) for _ in range(3))
+    log_w = width.bit_length() - 1
+    for lo, hi in _rounds_launches(keys):
+        tab_keys = list(dict.fromkeys(keys[lo:hi]))
+        tab = (ctypes.c_longlong * (4 * len(tab_keys)))(*[x for k in tab_keys for x in k])
+        segs = []
+        for (_table, idx, off), key in zip(segments[lo:hi], keys[lo:hi]):
+            segs += [idx.data_ptr(), idx.shape[0], tab_keys.index(key), int(off)]
+        seg = (ctypes.c_longlong * len(segs))(*segs)
+        _build.launch("zk_heavy_rounds", f"heavy_rounds_g{curve.group}", curve.group,
+                      len(tab_keys), ctypes.addressof(tab), hi - lo, ctypes.addressof(seg), log_w,
+                      *[t[lo * width:].data_ptr() for t in out])
+    return out
+
+
 def tree_sum_many(curve, segments, block: int = TREE_BLOCK, chunk: Optional[int] = None) -> Jac:
     """Exact sums [S] (Jacobian, on the device) of the table points at the
     scalar indices of each segment (table, idx, offset): rows idx - offset,
     absent rows skipped (port of `_tree_sum_subset` / `_lane_fold`, every
     segment of a group at once). Each segment gets W lanes, W the widest
-    segment's power of two capped at `block`; round r adds the segment's
-    entries r W .. (r + 1) W - 1 by mixed adds (B2), one launch a round
-    over every segment that has them; then `fold` sums each segment's
-    lanes. Takes at least one segment; nothing here waits on the device."""
-    device = segments[0][1].device
-    counts = [int(idx.shape[0]) if table.xs.shape[0] else 0 for table, idx, _off in segments]
+    segment's power of two capped at `block` (a power of two); lane l sums
+    entries l, W + l, 2 W + l, ... (`heavy_rounds`, one launch), then
+    `fold` sums each segment's lanes. Takes at least one segment; nothing
+    here waits on the device."""
+    counts = _rounds_counts(segments)
     width = min(block, 1 << max(max(counts) - 1, 0).bit_length())
-    rounds = [-(-m // width) for m in counts]
-    order = sorted(range(len(segments)), key=lambda k: -rounds[k])  # round r: a prefix
-    gathered = []  # xs, ys, present [rounds * W] of each segment with entries, in `order`
-    for k in order[: sum(1 for r in rounds if r)]:
-        table, idx, off = segments[k]
-        rows = idx.to(torch.int64) - off
-        ok = (rows >= 0) & (rows < table.xs.shape[0])
-        rows = torch.where(ok, rows, 0)
-        ok &= table.valid[rows]
-        pad = rounds[k] * width - counts[k]
-        rows = torch.cat([rows, rows.new_zeros(pad)])
-        ok = torch.cat([ok, ok.new_zeros(pad)])
-        gathered.append((table.xs[rows], table.ys[rows], ok))
-    acc = curve.infinity((len(segments) * width,), device)
-    for r in range(max(rounds)):
-        act = sum(1 for k in order if rounds[k] > r)
-        sl = slice(r * width, (r + 1) * width)
-        xq, yq, ok = (torch.cat([g[i][sl] for g in gathered[:act]]) for i in range(3))
-        new = curve.add_affine(tuple(t[: act * width] for t in acc), xq, yq, ok)
-        if act < len(segments):
-            new = tuple(torch.cat([a, t[act * width :]]) for a, t in zip(new, acc))
-        acc = new
-    sums = fold(curve, acc, width, chunk)
-    if order == sorted(order):
-        return sums
-    back = sorted(range(len(order)), key=lambda i: order[i])  # no host-to-device copy
-    return tuple(torch.cat([t[i : i + 1] for i in back]) for t in sums)
+    return fold(curve, heavy_rounds(curve, segments, width), width, chunk)
 
 
 # ---------------------------------------------------------------------------
