@@ -68,11 +68,24 @@ Phases, each printing a line:
      raced against index_select, the MSM total exact; its JSON goes to
      build/chip_smoke/msm_stages.json. Then
      E1-E3 against the plain version (exact equality) at the harness's
-     shapes, each with its bound (bytes M W 4 written, 4 M of indices and
-     D W 4 read for the D distinct rows indexed) and the index_select time
-     (the plain version is index_select, so its time is also the library
-     time). The c = 11 run's whole-MSM stage is the G1 MSM at 2^20 in
-     Mpoints/s. The launch counts of phases 4, 5 and 7 (each reset just
+     shapes (its GATHER_KERNELS: E1 [2^11, 16] 2^15 rows; E2 [2^11, 16]
+     2^13 rows, [2^13, 16] 2^13 rows, the JAX harness's, and [2^13, 16]
+     2^20 rows; E3 [2^18, 128] 2^14 rows, the TPU's, and [2^20, 16] 2^20
+     rows, the MSM's), each with its bound (bytes M W 4 written, 4 M of
+     indices and D W 4 read for the D distinct rows indexed) and, for the
+     kernel and for index_select (the plain version, so also the library
+     call), three times a call: `ms` (CUDA events around GATHER_REPS
+     back-to-back calls: the larger of the host's launch path and the
+     card's time), `host_ms` (the enqueue alone, host clock) and
+     `device_ms`: torch.profiler's kernel time over the same calls where
+     it kept at least GATHER_KEPT of the kernel records (kernels a call
+     from the launch counts), else `graph_ms`, CUDA events around a CUDA
+     graph replay of the calls, which every row reports beside it; the
+     row's `device_method` says which. Device times are taken after every
+     call time, since a profiler session may leave later launches slower.
+     The kernels line carries device_ms and library_device_ms for E1-E3.
+     The c = 11 run's whole-MSM stage is
+     the G1 MSM at 2^20 in Mpoints/s. The launch counts of phases 4, 5 and 7 (each reset just
      before it) must together be non-zero for every kernel of a path;
      B2-B4 run on the path inside heavy_rounds, msm_horner and point_fold,
      and the elementwise point_add_affine / point_add / point_double, which
@@ -111,6 +124,11 @@ The second-to-last line is a JSON object listing every kernel; the last is
 runs only the setup profile of phase 9, on the zkpoa_tpu_torch package of
 the checkout at ROOT (this tree's, or a parent's unpacked with git
 archive), and prints it as one JSON line: an A/B of setup on one card.
+
+    python3 chip_smoke.py --gather-profile ROOT
+
+runs only phase 7's gather rows, the same way, on the package at ROOT and
+its harness's shapes: an A/B of E1-E3.
 """
 
 import contextlib
@@ -169,7 +187,7 @@ KERNELS = {
     "heavy_rounds_g1": ("csrc/heavy_rounds.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "heavy_rounds_g2": ("csrc/heavy_rounds.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "gather_smem_rows": ("csrc/gather.cu", "experiments/msm_stages.py:91"),
-    "gather_smem_vec": ("csrc/gather.cu", "experiments/msm_stages.py:110"),
+    "gather_vec": ("csrc/gather.cu", "experiments/msm_stages.py:110"),
     "gather_async": ("csrc/gather.cu", "experiments/msm_stages.py:150"),
 }
 # The elementwise B2-B4 that no path calls since Horner, the heavy-value
@@ -183,6 +201,11 @@ PHASE3_ONLY = {"point_add_g1", "point_add_g2", "point_double_g1", "point_double_
 # lanes (9 B2 launches a group before the rounds kernel)
 HEAVY_RUNS = (560_000, 70_000, 20_000, 6_000, 2_000, 1_200, 600, 300)
 HEAVY_PAD = 3  # a prefix pad for the c table, as the c-query has one (n_public + 1)
+
+GATHER_REPS = 100  # back-to-back calls of each gather timing
+# the least share of a gather's kernel records that torch.profiler must keep
+# for its device time to stand; below it, the time of a CUDA graph replay
+GATHER_KEPT = 0.9
 
 # The bound of a kernel is the larger of its bytes over the memory rate and
 # its int32 operations over the issue rate (NVIDIA H100 SXM data sheet and
@@ -926,8 +949,6 @@ def msm_stages_path(torch, checks):
     """Phase 7: the MSM stage harness's CLI at 2^20 for c = 11 and 13, the
     launch counts of both runs; then E1-E3 against the plain version at the
     harness's shapes."""
-    import numpy as np
-
     from zkpoa_tpu_torch import _build
     from zkpoa_tpu_torch.experiments import msm_stages as H
     from zkpoa_tpu_torch.ops import gather as G
@@ -967,8 +988,24 @@ def msm_stages_path(torch, checks):
     log(f"G1 MSM at 2^{MSM_STAGES_LOG_N} (plan included): exact; {best * 1e3:.2f} ms -> "
         f"{msm['g1_msm_2p20_mpoints_s']:.3f} Mpoints/s")
 
-    # E1-E3 against the plain version on random rows at the harness's shapes;
-    # E3 at the MSM's shape first, the row the kernels line reports
+    # E1-E3 against the plain version (index_select) at the harness's shapes,
+    # each with its call time, device time and bound; E3 at the MSM's shape
+    # first, the row the kernels line reports
+    for stage, row in gather_rows(torch, G, gather_inputs(torch, H)).items():
+        name = f"{row['kernel']}[{stage}]"
+        log_gather_row(name, row)
+        if row["max_abs_err"] != 0:
+            fail(f"{name}: the kernel disagrees with index_select")
+        checks.rows[name] = row
+    return summary, counts, msm
+
+
+def gather_inputs(torch, H):
+    """(stage, wrapper, tab, idx) of the harness H's `gather_cases` on the
+    card, from one seed: random x|y rows [2^20, 16] and a random visit
+    order; E3 at the MSM's shape first."""
+    import numpy as np
+
     n = 1 << MSM_STAGES_LOG_N
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -977,14 +1014,165 @@ def msm_stages_path(torch, checks):
     visit = torch.randint(0, n, (n,), generator=gen, device="cuda").to(torch.int32)
     cases = H.gather_cases(xy, visit, np.random.default_rng(1))
     cases.sort(key=lambda case: case[0] != "g_dma_msm")
+    return cases
+
+
+def profiler_ms(torch, fn, per_call: int, reps: int = GATHER_REPS):
+    """(device ms a call, share of the expected kernel records kept, kernel
+    names) by torch.profiler over `reps` back-to-back calls of `per_call`
+    kernels each, after a warm-up call: the mean recorded kernel times
+    per_call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kernels = [e for e in device_events(json.load(f)) if e["cat"] == "kernel"]
+    if not kernels:
+        return None, 0.0, []
+    names = sorted({e["name"].split("(")[0].replace("void ", "")[:100] for e in kernels})
+    return (sum(e["dur"] for e in kernels) / len(kernels) * per_call / 1e3,
+            len(kernels) / (reps * per_call), names)
+
+
+def graph_ms(torch, fn, reps: int = GATHER_REPS) -> float:
+    """Device ms a call by CUDA events around one replay of a CUDA graph of
+    `reps` calls (captured after a warm-up call on the capture's side
+    stream): the kernels back to back with no launch path between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int = GATHER_REPS) -> float:
+    """Host clock of one call's enqueue: `reps` calls without a synchronize
+    (after one warm-up call and a synchronize), the launch path alone."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def gather_calls(G, fn, tab, idx, per_call: int) -> dict:
+    """key prefix -> (call, kernels a call): the kernel, and index_select
+    (its plain version and the library call), each bound to this case."""
+    return {"": (lambda: fn(tab, idx), per_call),
+            "library_": (lambda: G.gather_rows_plain(tab, idx), 1)}
+
+
+def gather_rows(torch, G, cases) -> dict:
+    """Each gather kernel against index_select (its plain version and the
+    library call, key prefix `library_`) on the same inputs: exactness, call
+    ms (CUDA events around GATHER_REPS back-to-back calls: the larger of the
+    host's launch path and the card's time), host ms (the enqueue alone),
+    device ms and the bytes bound (M W 4 written, 4 M of indices and D W 4
+    read for the D distinct rows indexed). Kernels a call come from
+    `_build.COUNTS` (index_select is one kernel). Device ms is
+    torch.profiler's (`device_method` "profiler") where it kept at least
+    GATHER_KEPT of the kernel records, else graph ms ("graph"), the time of a
+    CUDA graph replay of the same calls, which every row also reports as a
+    cross-check. Call and host times are all taken before the first profiler
+    session, which may leave later launches slower."""
+    from zkpoa_tpu_torch import _build
+
+    rows, timed = {}, []
     for stage, fn, tab, idx in cases:
+        launched = sum(_build.COUNTS.values())
+        got = fn(tab, idx)
+        per_call = sum(_build.COUNTS.values()) - launched
         m, w = idx.shape[0], tab.shape[1]
-        distinct = torch.unique(idx).numel()  # rows the gather must read at least once
-        checks.record(f"{fn.__name__}[{stage}]", fn(tab, idx), G.gather_rows_plain(tab, idx),
-                      lambda: fn(tab, idx), lambda: G.gather_rows_plain(tab, idx),
-                      (m * w * 4 + 4 * m + distinct * w * 4, 0), plain_reps=20,
-                      plain_is_library=True)  # the plain version is index_select
-    return summary, counts, msm
+        want = G.gather_rows_plain(tab, idx)
+        n_bytes = m * w * 4 + 4 * m + torch.unique(idx).numel() * w * 4
+        bound_ms, bound_by = bound(n_bytes, 0)
+        calls = gather_calls(G, fn, tab, idx, per_call)
+        row = {"kernel": fn.__name__, "max_abs_err": max_abs_err(torch, got, want),
+               "table": list(tab.shape), "rows": m, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": n_bytes}
+        for key, (f, _) in calls.items():
+            row[f"{key}ms"] = time_ms(torch, f, GATHER_REPS)
+            row[f"{key}host_ms"] = host_ms(torch, f)
+        rows[stage] = row
+        timed.append((row, calls))
+    for row, calls in timed:
+        for key, (f, per_call) in calls.items():
+            prof, kept, names = profiler_ms(torch, f, per_call)
+            graph = graph_ms(torch, f)
+            by_profiler = prof is not None and kept >= GATHER_KEPT
+            row.update({f"{key}device_ms": prof if by_profiler else graph,
+                        f"{key}device_method": "profiler" if by_profiler else "graph",
+                        f"{key}profiler_ms": prof, f"{key}graph_ms": graph,
+                        f"{key}kernels_per_call": per_call, f"{key}records_kept": kept,
+                        f"{key}kernel_names": names})
+        row["plain_ms"], row["plain_device_ms"] = row["library_ms"], row["library_device_ms"]
+    return rows
+
+
+def log_gather_row(name: str, row: dict) -> None:
+    log(f"{name}: max_abs_err={row['max_abs_err']}; " + "; ".join(
+        f"{label} call {row[k + 'ms']:.4f} ms, host {row[k + 'host_ms']:.4f} ms, device "
+        f"{row[k + 'device_ms']:.4f} ms by {row[k + 'device_method']} (graph "
+        f"{row[k + 'graph_ms']:.4f} ms; {row[k + 'kernels_per_call']} kernels a call, "
+        f"{row[k + 'records_kept']:.0%} of the profiler's records kept)"
+        for label, k in (("kernel", ""), ("index_select", "library_")))
+        + f"; bound {row['bound_ms']:.4f} ms ({row['bytes']:.4g} B)")
+
+
+def gather_profile_main(root: str) -> int:
+    """`--gather-profile ROOT`: phase 7's gather rows alone, on the
+    zkpoa_tpu_torch package under ROOT and its harness's shapes; one JSON
+    line."""
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "zkpoa_tpu_torch", "csrc")):
+        fail(f"no zkpoa_tpu_torch package under {root}")
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.experiments import msm_stages as H
+    from zkpoa_tpu_torch.ops import gather as G
+
+    if not _build.__file__.startswith(root + os.sep):
+        fail(f"zkpoa_tpu_torch came from {_build.__file__}, not from {root}")
+    _build.lib()
+    rows = gather_rows(torch, G, gather_inputs(torch, H))
+    for stage, row in rows.items():
+        log_gather_row(f"gather profile {row['kernel']}[{stage}]", row)
+        if row["max_abs_err"] != 0:
+            fail(f"{stage}: {row['kernel']} disagrees with index_select")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"root": root, "smi": smi, "gathers": rows}), flush=True)
+    return 0
 
 
 def merkle_2p20(torch):
@@ -1448,6 +1636,8 @@ def setup_profile_main(root: str) -> int:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--setup-profile":
         return setup_profile_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--gather-profile":
+        return gather_profile_main(sys.argv[2])
     if not os.path.isdir(os.path.join(REPO, "zkpoa_tpu_torch", "csrc")):
         fail("the zkpoa_tpu_torch package is not beside this script")
     try:
@@ -1525,8 +1715,9 @@ def main() -> int:
             "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
             "library_ms": rows[0]["library_ms"],  # None where no PyTorch call computes it
         }
-        if "latency_bound_ms" in rows[0]:
-            entry["latency_bound_ms"] = rows[0]["latency_bound_ms"]
+        for key in ("latency_bound_ms", "device_ms", "library_device_ms"):
+            if key in rows[0]:
+                entry[key] = rows[0][key]
         if kname in PHASE3_ONLY:
             entry["checked"] = "phase 3 only"
         kernels.append(entry)

@@ -270,7 +270,7 @@ def test_merkle_tree_on_card_equals_cpu(card):
         assert t_gpu.prove(i) == t_cpu.prove(i)
 
 
-GATHERS = {"gather_smem_rows": G.gather_smem_rows, "gather_smem_vec": G.gather_smem_vec,
+GATHERS = {"gather_smem_rows": G.gather_smem_rows, "gather_vec": G.gather_vec,
            "gather_async": G.gather_async}
 
 
@@ -280,7 +280,7 @@ GATHERS = {"gather_smem_rows": G.gather_smem_rows, "gather_smem_vec": G.gather_s
 def test_gather_kernels_match_index_select(card, kind, w, m):
     """E1-E3 on random and sorted indices with repeats: one launch each (none
     for M = 0), equal to index_select bit for bit. A 300-row table of 512 B
-    rows takes E1/E2 above the 48 KB default of shared memory."""
+    rows takes E1 above the 48 KB default of shared memory."""
     rng = np.random.default_rng(1000 * w + m)
     tab = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(300, w), dtype=np.int32)).to(card)
     idx = rng.integers(0, 300, size=m, dtype=np.int32)
@@ -298,18 +298,71 @@ def test_gather_kernels_match_index_select(card, kind, w, m):
 
 
 def test_gather_kernels_refuse_what_they_cannot_take(card):
-    """E1/E2 raise on a table above the shared-memory limit (no fallback to
-    index_select); E3 raises on a table that is not 16-byte aligned."""
-    idx = torch.zeros(8, dtype=torch.int32, device=card)
-    big = torch.zeros((4096, 16), dtype=torch.int32, device=card)  # 256 KiB
+    """E1 raises on a table above the shared-memory limit (no fallback to
+    index_select), and E2, which stages nothing, gathers that table exactly
+    in one launch; E2 and E3 raise on a table that is not 16-byte aligned."""
+    rng = np.random.default_rng(7)
+    idx = torch.from_numpy(rng.integers(0, 4096, size=1000, dtype=np.int32)).to(card)
+    idx[-1] = 4095
+    big = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(4096, 16),
+                                        dtype=np.int32)).to(card)  # 256 KiB
     _build.reset_counts()
-    for fn in (G.gather_smem_rows, G.gather_smem_vec):
-        with pytest.raises(ValueError):
-            fn(big, idx)
-    flat = torch.zeros(64 * 16 + 1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        G.gather_async(flat[1:].view(64, 16), idx)
+        G.gather_smem_rows(big, idx)
+    flat = torch.zeros(64 * 16 + 1, dtype=torch.int32, device=card)
+    for fn in (G.gather_vec, G.gather_async):
+        with pytest.raises(ValueError):
+            fn(flat[1:].view(64, 16), idx[:8] % 64)
     assert _build.COUNTS == {}
+    got = G.gather_vec(big, idx)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {"gather_vec": 1}
+    assert torch.equal(got, torch.index_select(big, 0, idx))
+
+
+@pytest.mark.parametrize("w,m", [(16, 31), (16, 33), (16, (1 << 14) + 5), (16, (1 << 20) + 5),
+                                 (128, 31), (128, 33), (128, (1 << 14) + 5),
+                                 (128, (1 << 16) + 5), (228, (1 << 12) + 5),
+                                 (1024, 17), (1024, (1 << 12) + 5), (1812, (1 << 10) + 3),
+                                 (G.ASYNC_W_MAX, 37)])
+def test_gather_async_stages(card, w, m):
+    """E3's stages: a partial stage alone (31), a whole one and a partial one
+    (33), 513-514 stages (one warp a stage) and, at 2^20 + 5 rows of 64 B and
+    2^16 + 5 rows of 512 B, more stages than the card holds warps, so each
+    warp walks its ring round several times; a partial last stage every
+    time. Rows above 224 words take 2 warps a block (228), then 16-row
+    stages (1024, 1812) and at ASYNC_W_MAX one-row stages. One launch each,
+    equal to index_select."""
+    rng = np.random.default_rng(w + m)
+    t = min(m, 1 << 16)
+    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(t, w), dtype=np.int32)).to(card)
+    idx = rng.integers(0, t, size=m, dtype=np.int32)
+    idx[min(31, m - 1)] = idx[min(32, m - 1)] = t - 1  # repeated across the first boundary
+    t_idx = torch.from_numpy(idx).to(card)
+    _build.reset_counts()
+    got = G.gather_async(tab, t_idx)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {"gather_async": 1}
+    assert torch.equal(got, torch.index_select(tab, 0, t_idx))
+
+
+@pytest.mark.parametrize("kind", ["gather_vec", "gather_async"])
+def test_kernels_launch_on_the_current_stream(card, kind):
+    """A launch goes to the stream current at the call: on a side stream,
+    behind a sleep and a copy that writes the table, the gather reads the
+    table as written, which it could not if it ran on another stream."""
+    rng = np.random.default_rng(11)
+    new = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(4096, 16), dtype=np.int32)).to(card)
+    idx = torch.from_numpy(rng.integers(0, 4096, size=1 << 14, dtype=np.int32)).to(card)
+    tab = torch.zeros_like(new)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of the side stream
+        tab.copy_(new)
+        got = GATHERS[kind](tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.index_select(new, 0, idx))
 
 
 def _jacobian_points(curve, pts, rng, device):

@@ -17,7 +17,8 @@ from zkpoa_tpu_torch.experiments import msm_stages as H
 torch.set_num_threads(1)
 
 LIBRARY = ("g_take_rows", "g_take_xy_rows", "g_take_limbmaj", "g_take_pad128", "g_take_sorted")
-KERNELS = {"g_vmem_pallas": "gather_smem_rows", "g_vmem_take": "gather_smem_vec",
+KERNELS = {"g_vmem_pallas": "gather_smem_rows", "g_vmem_take": "gather_vec",
+           "g_vmem_take_2p13": "gather_vec", "g_vmem_take_2p20": "gather_vec",
            "g_dma_pallas": "gather_async", "g_dma_msm": "gather_async"}
 STAGES = ("digits", "plan(sort)", *LIBRARY, *KERNELS, "full_group", "reduce", "msm")
 
@@ -37,6 +38,9 @@ def test_harness_records_every_stage_and_an_exact_msm(tmp_path):
     for stage, kernel in KERNELS.items():
         assert res[stage]["kernel"] == kernel and res[stage]["library_best_s"] >= 0
     assert res["g_vmem_pallas"]["table"] == [1024, 16] and res["g_vmem_pallas"]["rows"] == 1 << 15
+    assert res["g_vmem_take_2p13"]["table"] == [1024, 16]
+    assert res["g_vmem_take_2p20"]["table"] == [1024, 16]
+    assert res["g_vmem_take_2p20"]["rows"] == 1 << 20
     assert res["g_dma_pallas"]["table"] == [1024, 128] and res["g_dma_pallas"]["rows"] == 1 << 14
     assert res["g_dma_msm"]["table"] == [1024, 16] and res["g_dma_msm"]["rows"] == 1024
     assert {"g_take_tr", "kernel_64r"} <= set(res["no_counterpart"])

@@ -72,7 +72,7 @@ SIGNATURES = {
     "zk_heavy_rounds": [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     # gather.cu: (tab, idx, T, W, M, out, stream)
     "zk_gather_smem_rows": [_P, _P, _L, _I, _L, _P, _P],
-    "zk_gather_smem_vec": [_P, _P, _L, _I, _L, _P, _P],
+    "zk_gather_vec": [_P, _P, _L, _I, _L, _P, _P],
     "zk_gather_async": [_P, _P, _L, _I, _L, _P, _P],
 }
 
@@ -156,11 +156,14 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(name: str, counter: Optional[str], *args) -> None:
-    """Call one exported launcher, raise on a CUDA error, count the launch
-    (under no counter when a wrapper's one kernel takes several launchers)."""
+    """Call one exported launcher on the current device's current stream,
+    raise on a CUDA error, count the launch (under no counter when a
+    wrapper's one kernel takes several launchers). It reads the stream's
+    raw handle rather than building a `torch.cuda.current_stream()` object
+    on every launch."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")

@@ -29,7 +29,10 @@ Stages, by the JAX harness's names where it has the stage:
                   N / 8 rows
   g_take_sorted   g_take_rows with the indices sorted
   g_vmem_pallas   E1 `gather_smem_rows`: table [2^11, 16], 2^15 rows
-  g_vmem_take     E2 `gather_smem_vec`: table [2^11, 16], 2^13 rows
+  g_vmem_take     E2 `gather_vec`: table [2^11, 16], 2^13 rows (the shape
+                  E2 ran at while it staged the table)
+  g_vmem_take_2p13  E2 at the JAX harness's shape: [2^13, 16], 2^13 rows
+  g_vmem_take_2p20  E2: [2^13, 16], 2^20 rows (64 MiB written)
   g_dma_pallas    E3 `gather_async` at the TPU's shape: [2^18, 128], 2^14 rows
   g_dma_msm       E3 at the MSM's shape: the x|y table [N, 16], N rows in
                   B5's visit order
@@ -82,9 +85,12 @@ SEED = 0
 # stage -> (wrapper, table rows, row words, rows gathered); None: the MSM's N
 GATHER_KERNELS = {
     "g_vmem_pallas": (G.gather_smem_rows, 1 << 11, 16, 1 << 15),
-    "g_vmem_take": (G.gather_smem_vec, 1 << 11, 16, 1 << 13),
+    "g_vmem_take": (G.gather_vec, 1 << 11, 16, 1 << 13),
     "g_dma_pallas": (G.gather_async, 1 << 18, 128, 1 << 14),
     "g_dma_msm": (G.gather_async, None, 16, None),
+    # last, so that adding them left the indices of the stages above unchanged
+    "g_vmem_take_2p13": (G.gather_vec, 1 << 13, 16, 1 << 13),
+    "g_vmem_take_2p20": (G.gather_vec, 1 << 13, 16, 1 << 20),
 }
 NO_COUNTERPART = {
     "g_take_tr": "the TPU's [rounds, limbs, lanes] lane layout; B5 reads points by index",
