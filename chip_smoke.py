@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of zkpoa_tpu_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain torch version, prove layer one end to end, run
-the three-layer workflow in full mode, run the MSM stage harness at 2^20
-and build a 2^20-leaf Merkle tree.
+the three-layer workflow in full mode, prove the recursive layer two (the
+in-snark verifier of layer one, at 2^23), run the MSM stage harness at
+2^20 and build a 2^20-leaf Merkle tree.
 
     python3 chip_smoke.py
 
@@ -22,8 +23,9 @@ Phases, each printing a line:
      over p), those pairs also against host integers, and products with one
      operand that is not canonical (2^256 - 1, p, 2p - 1, ...) inside the
      contract a.b < 2^256 p; the NTT pass kernel at the layer-one domain,
-     2^21, forward and inverse, against the per-stage plain version, with
-     the per-stage route through elementwise B1 launches (the port's
+     2^21 (two passes), and at the recursive layer two's, 2^23 (three
+     passes), forward and inverse, against the per-stage plain version,
+     with the per-stage route through elementwise B1 launches (the port's
      transform before the pass kernel) timed beside it; B2-B4 point
      ops on 2^16 G1 and G2 points plus infinity, P == Q, P == -Q and absent
      points; B8 fixed-base multiplication of 2^16 G1 and 2^14 and 2^16 G2
@@ -58,6 +60,25 @@ Phases, each printing a line:
      Merkle root, balance sum 657 and the 13 layer-three public values must
      equal the recorded run's, every proof.json written must verify, and
      B8 must have run in its setups;
+  5b. main path, recursive layer two: the layer-two circuit of the recorded
+     run's batch 0 with the in-snark Groth16 verifier of the workflow
+     phase's own batch-0 layer-one proof (its layer_one_sanitized_proof.json,
+     layer_one_vkey.json and layer_two_input.json), about 7M constraints at
+     a 2^23 domain: built on the host, set up and proved on the card; the
+     host verifier must accept the proof and its public values must equal
+     the recorded batch_0/public.json. The circuit comes from the
+     workflow's own `load_layer_two_input` and
+     `recursive_layer_two_circuit`. Logs constraints and domain, build,
+     setup and prove seconds, the prove's phase ends, peak host RSS beside
+     the host's RAM, peak device memory (setup's, and each prove phase's,
+     the MSM plans' among them) and the phase's launches by kernel. Then,
+     outside the launch counts, the kernels whose shapes this prove alone
+     gives are held against their plain versions on its own key: the
+     heavy-value rounds kernel at its heavy segments, and the bucket
+     accumulation over its witness plan (G2, b2-query) and over a plan of
+     dense scalars as long as its h-query (G1, the h MSM's shape, 24
+     windows over about 2^23 scalars), each plain version run once and
+     timed by that run;
   6. setup A/B: setup_device of the workflow's three layer circuits with B8
      and with the B2-loop route, in turns B2, B8, B8, B2;
   7. MSM stages: the harness's CLI, `python -m
@@ -85,8 +106,8 @@ Phases, each printing a line:
      call time, since a profiler session may leave later launches slower.
      The kernels line carries device_ms and library_device_ms for E1-E3.
      The c = 11 run's whole-MSM stage is
-     the G1 MSM at 2^20 in Mpoints/s. The launch counts of phases 4, 5 and 7 (each reset just
-     before it) must together be non-zero for every kernel of a path;
+     the G1 MSM at 2^20 in Mpoints/s. The launch counts of phases 4, 5, 5b and 7 (each reset
+     just before it) must together be non-zero for every kernel of a path;
      B2-B4 run on the path inside heavy_rounds, msm_horner and point_fold,
      and the elementwise point_add_affine / point_add / point_double, which
      no path calls any more, are checked in phase 3 only (so marked in the
@@ -116,8 +137,10 @@ Phases, each printing a line:
      held against its plain version at the prove's own heavy segments,
      with the bound from the entries they add. The trace goes to
      build/chip_smoke/prove_trace.json.
-The second-to-last line is a JSON object listing every kernel; the last is
-{"ok": true, "device": {...}}. Any failure exits non-zero before them.
+The second-to-last line is a JSON object listing every kernel (its
+numbers from its first check; `checks` lists every check of it, by shape);
+the last is {"ok": true, "device": {...}}. Any failure exits non-zero
+before them.
 
     python3 chip_smoke.py --setup-profile ROOT
 
@@ -147,6 +170,7 @@ GOLDEN = os.path.join(RUN2, "2_sigs_2_batches_5_height")
 BLIND = "0xB11DD1E5"
 LAYER_ONE_WIRES = 1_378_647  # witness length of layer one at 1 sig: the MSM plans' size
 LAYER_ONE_LOG_DOMAIN = 21  # its QAP domain, the size of every NTT of its prove
+LAYER_TWO_LOG_DOMAIN = 23  # the recursive layer two's (phase 5b)
 QUOTIENT_B1_MAX = 6  # B1 launches the quotient phase keeps: to_mont x 3, A*B, - C, from_mont
 MSM_STAGES_LOG_N = 20  # the MSM stage harness's size, its default
 T0 = time.time()
@@ -186,7 +210,7 @@ KERNELS = {
     "fixed_base_g2": ("csrc/fixed_base.cu", "zkpoa_tpu/ops/curve_jax.py:369"),
     "heavy_rounds_g1": ("csrc/heavy_rounds.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
     "heavy_rounds_g2": ("csrc/heavy_rounds.cu", "zkpoa_tpu/ops/pallas_field.py:321"),
-    "gather_smem_rows": ("csrc/gather.cu", "experiments/msm_stages.py:91"),
+    "gather_rows": ("csrc/gather.cu", "experiments/msm_stages.py:91"),
     "gather_vec": ("csrc/gather.cu", "experiments/msm_stages.py:110"),
     "gather_async": ("csrc/gather.cu", "experiments/msm_stages.py:150"),
 }
@@ -272,6 +296,18 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def once_ms(torch, fn):
+    """(result, device time in ms) of one call of fn, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def max_abs_err(torch, got, want) -> int:
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -290,15 +326,18 @@ class Checks:
         self.mont_latency_ms = None  # one Fq product's latency (mont_latency)
 
     def record(self, name, got, want, fn_kernel, fn_plain, work, reps=20, plain_reps=1,
-               plain_is_library=False, chain=None):
+               plain_is_library=False, chain=None, plain_ms=None):
         """work = (bytes, int32 operations) of one call, for its bound;
         plain_is_library: fn_plain is one PyTorch call computing the same
         function, so its time is also the library time (else there is none);
         chain: the dependent Montgomery products on the kernel's critical
-        path, for its latency bound (chain x one product's latency)."""
+        path, for its latency bound (chain x one product's latency);
+        plain_ms: the plain version's time from the one call that gave
+        `want` (`once_ms`), where timing more calls would cost too long."""
         err = max_abs_err(self.torch, got, want)
         ms = time_ms(self.torch, fn_kernel, reps)
-        plain_ms = time_ms(self.torch, fn_plain, plain_reps)
+        if plain_ms is None:
+            plain_ms = time_ms(self.torch, fn_plain, plain_reps)
         library_ms = plain_ms if plain_is_library else None
         bound_ms, bound_by = bound(*work)
         self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -686,12 +725,13 @@ def rounds_work(torch, curve, segments, width):
             added * PRODUCTS["add_affine"][curve.group] * MONT_OPS)
 
 
-def check_prove_rounds(torch, checks, pk, witness):
-    """The rounds kernel at a warm layer-one prove's own segments (phase
-    9, after the profiled prove): the witness plan's heavy values over the
-    a, b1 and c tables (the c-query at its prefix pad) and over b2, as
-    `prove` passes them to `msm_many`; against its plain version, with the
-    bound from the entries these segments add."""
+def check_prove_rounds(torch, checks, pk, witness, label="prove"):
+    """The rounds kernel at a prove's own segments (phase 9 after a warm
+    layer-one prove, phase 5b after the recursive layer two's; `label`
+    names the rows): the witness plan's heavy values over the a, b1 and c
+    tables (the c-query at its prefix pad) and over b2, as `prove` passes
+    them to `msm_many`; against its plain version, with the bound from the
+    entries these segments add."""
     from zkpoa_tpu_torch import host
     from zkpoa_tpu_torch.fields.bn254 import R
     from zkpoa_tpu_torch.ops import msm as M
@@ -703,7 +743,7 @@ def check_prove_rounds(torch, checks, pk, witness):
     pads = ((pk.a_query, 0), (pk.b1_query, 0), (pk.c_query, pk.n_public + 1))
     out = {"heavy_counts": [int(sel.shape[0]) for _v, sel in heavy]}
     if not heavy:
-        fail("the layer-one witness has no heavy values: the prove ran no rounds")
+        fail(f"the {label} witness has no heavy values: the prove ran no rounds")
     for curve, segments in ((BN254_G1, [(t, sel, pad) for t, pad in pads for _v, sel in heavy]),
                             (BN254_G2, [(pk.b2_query, sel, 0) for _v, sel in heavy])):
         counts = [int(idx.shape[0]) for _t, idx, _o in segments]
@@ -711,14 +751,64 @@ def check_prove_rounds(torch, checks, pk, witness):
         entries, added, n_bytes, n_ops = rounds_work(torch, curve, segments, width)
         kern = lambda: M.heavy_rounds(curve, segments, width)  # noqa: E731
         plain = lambda: M.heavy_rounds_plain(curve, segments, width)  # noqa: E731
-        name = f"heavy_rounds_g{curve.group}[prove: {len(segments)} segments]"
+        name = f"heavy_rounds_g{curve.group}[{label}: {len(segments)} segments]"
         checks.record(name, kern(), plain(), kern, plain, (n_bytes, n_ops), reps=10)
         out[f"g{curve.group}"] = {"segments": len(segments), "width": width, "entries": entries,
                                   "added": added, "rounds": -(-max(counts) // width),
                                   **checks.rows[name]}
         log(f"{name}: {entries} entries, {added} added, {width} lanes a segment, "
             f"{-(-max(counts) // width)} rounds")
-    log(f"profile heavy values of the prove: {len(heavy)}, entries {out['heavy_counts']}")
+    log(f"heavy values of the {label}: {len(heavy)}, entries {out['heavy_counts']}")
+    return out
+
+
+def accum_work(plan, n_rows, group):
+    """(bytes, int32 operations) of B5/B6 over a plan: every table row read
+    (x, y, valid), the plan's order and piece table, the bucket sums
+    written; one mixed add per entry in some bucket."""
+    cb = COORD_BYTES[group]
+    lanes = plan.nw * plan.nb
+    adds = int(plan.starts[:, -1].sum())
+    piece_bytes = 8 * plan.n_pieces + 4 * (lanes + 1)
+    return (n_rows * (2 * cb + 1) + 4 * plan.nw * plan.n + piece_bytes + 3 * cb * lanes,
+            adds * PRODUCTS["add_affine"][group] * MONT_OPS)
+
+
+def check_prove_accum(torch, checks, gen, pk, witness, label):
+    """B5/B6 at the shapes of a prove of this key (phase 5b): G2 over the
+    witness plan (heavy values split, as `prove` plans it) with the
+    b2-query, G1 over a plan of dense random scalars as many as the
+    h-query's rows at the h MSM's window, with the h-query; each against its
+    plain version, run once and timed by that run."""
+    from zkpoa_tpu_torch import host
+    from zkpoa_tpu_torch.fields.bn254 import R
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops import msm as M
+    from zkpoa_tpu_torch.ops.curve import BN254_G1
+    from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+
+    w = torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in witness])).to("cuda")
+    n_h = len(pk.h_query)
+    h = rand_field(torch, L.BN254_FR, n_h, gen)
+    out = {}
+    for curve, table, plan in (
+            (BN254_G2, pk.b2_query, M.plan_msm(w)),
+            (BN254_G1, pk.h_query, M.plan_msm(h, M.auto_c(n_h), split_heavy=False))):
+        g = curve.group
+        kern = lambda: M.accumulate(curve, table.xs, table.ys, table.valid, 0, plan)  # noqa: E731
+        plain = lambda: M.accumulate_plain(  # noqa: E731
+            curve, table.xs, table.ys, table.valid, 0, plan)
+        got = kern()
+        want, plain_ms = once_ms(torch, plain)
+        name = f"msm_accum_g{g}[{label}: {plan.n} scalars]"
+        checks.record(name, got, want, kern, plain, accum_work(plan, table.xs.shape[0], g),
+                      reps=3, plain_ms=plain_ms)
+        out[f"g{g}"] = {"scalars": plan.n, "c": plan.c, "pieces": plan.n_pieces,
+                        "max_pieces": plan.max_pieces, "combine_depth": plan.combine_depth,
+                        **checks.rows[name]}
+        log(f"{name}: {plan.n} scalars, c = {plan.c}, {plan.n_pieces} pieces, at most "
+            f"{plan.max_pieces} a bucket, combine depth {plan.combine_depth}")
+        del got, want, plan
     return out
 
 
@@ -751,12 +841,9 @@ def check_msm(torch, checks, gen):
             curve, table.xs, table.ys, table.valid, 0, plan)
         buckets = acc()
         cb = COORD_BYTES[g]
-        adds = int(plan.starts[:, -1].sum())  # entries in some bucket: one mixed add each
         lanes = plan.nw * plan.nb
-        piece_bytes = 8 * plan.n_pieces + 4 * (lanes + 1)  # the plan's piece table
         checks.record(f"msm_accum_g{g}", buckets, acc_plain(), acc, acc_plain,
-                      (n * (2 * cb + 1) + 4 * plan.nw * n + piece_bytes + 3 * cb * lanes,
-                       adds * PRODUCTS["add_affine"][g] * MONT_OPS), reps=3)
+                      accum_work(plan, n, g), reps=3)
         log(f"msm_accum_g{g} at 2^{log_n}: {plan.n_pieces} pieces of at most {plan.piece} "
             f"entries, at most {plan.max_pieces} a bucket; combine {len(plan.combine)} levels, "
             f"depth {plan.combine_depth} full adds")
@@ -898,6 +985,84 @@ def workflow_path(torch, tmp):
         f"verified inside the run); peak device memory {peak / 2**30:.2f} GiB")
     log(f"launches in the workflow phase: {json.dumps(counts, sort_keys=True)}")
     return {"wall_s": wall, "peak_bytes": peak, "benchmarks": bench}, counts, bdir
+
+
+def recursive_layer_two(torch, checks, gen, bdir):
+    """Phase 5b: the recursive layer-two circuit of the recorded run's batch 0
+    (the in-snark verifier of the workflow phase's own layer-one proof, at
+    its full size), built by the workflow's own functions, set up and proved
+    on the card; launch counts of this phase alone. Then, outside them, the
+    rounds kernel and B5/B6 against their plain versions at this prove's
+    shapes."""
+    import resource
+
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.pipeline import workflow
+    from zkpoa_tpu_torch.prover import groth16
+    from zkpoa_tpu_torch.prover.prove import prove
+    from zkpoa_tpu_torch.prover.setup import setup_device
+
+    inp, vk1_json = workflow.load_layer_two_input(os.path.join(bdir, "batch_0"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    c2 = workflow.recursive_layer_two_circuit(inp, vk1_json, 5)
+    r1cs, witness = c2.compile()
+    t1 = time.perf_counter()
+    pk = setup_device(r1cs, "cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peaks = {"setup": torch.cuda.max_memory_allocated()}
+    phases = []
+
+    def on_phase(msg):
+        # each prove phase's own peak device memory (the plans' among them)
+        name = msg.removeprefix("prove: ").rsplit(" ", 1)[0]
+        peaks[name] = torch.cuda.max_memory_allocated()
+        phases.append(f"{msg.removeprefix('prove: ')} (peak {peaks[name] / 2**30:.2f} GiB)")
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    proof = prove(pk, r1cs, witness, "cuda", seed="l2-b0", log=on_phase)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(_build.COUNTS)
+    peak = max(peaks.values())
+    publics = [str(x) for x in c2.public_values]
+    ok = groth16.verify(groth16.VerifyingKey.from_json(pk.vk_json), proof, c2.public_values)
+    domain = pk.domain_size
+    n, wires = r1cs.n_constraints, r1cs.n_wires
+    del r1cs, c2, proof
+    if not ok:
+        fail("recursive layer two: the host verifier refuses the proof")
+    with open(os.path.join(GOLDEN, "batch_0", "public.json")) as f:
+        want = json.load(f)
+    if publics != want:
+        fail(f"recursive layer two: public values {publics}, recorded {want}")
+    if domain != 1 << 23:
+        fail(f"recursive layer two: domain {domain}, expected 2^23")
+    with open("/proc/meminfo") as f:
+        total_kib = int(next(ln for ln in f if ln.startswith("MemTotal:")).split()[1])
+    rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    out = {"constraints": n, "wires": wires, "domain": domain, "build_s": t1 - t0,
+           "setup_s": t2 - t1, "prove_s": t3 - t2, "peak_device_bytes": peak,
+           "peak_rss_kib": rss_kib, "host_ram_kib": total_kib, "prove_phases": phases,
+           "peak_device_bytes_by_phase": peaks}
+    log(f"recursive layer two (batch 0, the in-snark verifier of the workflow's layer-one "
+        f"proof): {n} constraints, {wires} wires, domain 2^{domain.bit_length() - 1}; host "
+        f"build {t1 - t0:.2f} s, setup_device {t2 - t1:.2f} s, prove {t3 - t2:.2f} s; proof "
+        f"verified, public values equal the recorded batch_0/public.json; peak device memory "
+        f"{peak / 2**30:.2f} GiB, peak host RSS {rss_kib / 2**20:.2f} GiB of "
+        f"{total_kib / 2**20:.1f} GiB")
+    log("recursive layer two prove phase ends: " + "; ".join(phases))
+    log(f"launches in the recursive layer-two phase: {json.dumps(counts, sort_keys=True)}")
+    out["kernel_checks"] = {
+        "heavy_rounds": check_prove_rounds(torch, checks, pk, witness, "layer two"),
+        "msm_accum": check_prove_accum(torch, checks, gen, pk, witness, "layer two")}
+    del pk, witness
+    torch.cuda.empty_cache()
+    return out, counts
 
 
 def setup_ab(torch, bdir):
@@ -1679,23 +1844,27 @@ def main() -> int:
     fb_stats = check_fixed_base(torch, checks)
     rounds_stats = check_heavy_rounds(torch, checks, gen)
     mont_ms = mont_latency(torch, checks, gen)
-    ntt_stats = check_ntt(torch, checks, gen, LAYER_ONE_LOG_DOMAIN)
+    ntt_stats = {f"2^{k}": check_ntt(torch, checks, gen, k)
+                 for k in (LAYER_ONE_LOG_DOMAIN, LAYER_TWO_LOG_DOMAIN)}
     check_msm(torch, checks, gen)
     stats, counts_l1 = main_path(torch)
     with tempfile.TemporaryDirectory() as tmp:
         wf, counts_wf, bdir = workflow_path(torch, tmp)
+        rec2, counts_rec = recursive_layer_two(torch, checks, gen, bdir)
         ab = setup_ab(torch, bdir)
     stages, counts_ms, msm_stats = msm_stages_path(torch, checks)
-    counts = {k: counts_l1.get(k, 0) + counts_wf.get(k, 0) + counts_ms.get(k, 0)
-              for k in set(counts_l1) | set(counts_wf) | set(counts_ms)}
+    phases = (counts_l1, counts_wf, counts_rec, counts_ms)
+    counts = {k: sum(c.get(k, 0) for c in phases) for k in set().union(*phases)}
     missing = [k for k in KERNELS if k not in PHASE3_ONLY and counts.get(k, 0) == 0]
     if missing:
-        fail(f"kernels not launched by the layer-one, workflow and msm_stages phases: {missing}")
+        fail(f"kernels not launched by the layer-one, workflow, recursive layer-two and "
+             f"msm_stages phases: {missing}")
     merkle = merkle_2p20(torch)
     prof = profile_prove(torch, checks)
     with open(os.path.join(OUT_DIR, "stats.json"), "w") as f:
         json.dump({"main_path": stats, "launches": counts, "launches_layer_one": counts_l1,
                    "launches_workflow": counts_wf, "launches_msm_stages": counts_ms,
+                   "launches_recursive_layer_two": counts_rec, "recursive_layer_two": rec2,
                    "kernels": checks.rows, "fixed_base": fb_stats, "heavy_rounds": rounds_stats,
                    "msm": msm_stats,
                    "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,
@@ -1718,6 +1887,10 @@ def main() -> int:
         for key in ("latency_bound_ms", "device_ms", "library_device_ms"):
             if key in rows[0]:
                 entry[key] = rows[0][key]
+        entry["checks"] = [
+            {"shape": k[len(kname):].strip("[]") or "phase 3",
+             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+            for k, r in checks.rows.items() if k.split("[")[0] == kname]
         if kname in PHASE3_ONLY:
             entry["checked"] = "phase 3 only"
         kernels.append(entry)

@@ -270,7 +270,7 @@ def test_merkle_tree_on_card_equals_cpu(card):
         assert t_gpu.prove(i) == t_cpu.prove(i)
 
 
-GATHERS = {"gather_smem_rows": G.gather_smem_rows, "gather_vec": G.gather_vec,
+GATHERS = {"gather_rows": G.gather_rows, "gather_vec": G.gather_vec,
            "gather_async": G.gather_async}
 
 
@@ -279,8 +279,8 @@ GATHERS = {"gather_smem_rows": G.gather_smem_rows, "gather_vec": G.gather_vec,
 @pytest.mark.parametrize("kind", list(GATHERS))
 def test_gather_kernels_match_index_select(card, kind, w, m):
     """E1-E3 on random and sorted indices with repeats: one launch each (none
-    for M = 0), equal to index_select bit for bit. A 300-row table of 512 B
-    rows takes E1 above the 48 KB default of shared memory."""
+    for M = 0), equal to index_select bit for bit. W = 8 and 128 take E1's
+    16-byte pieces with rows narrower and wider than a warp's 32 pieces."""
     rng = np.random.default_rng(1000 * w + m)
     tab = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(300, w), dtype=np.int32)).to(card)
     idx = rng.integers(0, 300, size=m, dtype=np.int32)
@@ -298,26 +298,86 @@ def test_gather_kernels_match_index_select(card, kind, w, m):
 
 
 def test_gather_kernels_refuse_what_they_cannot_take(card):
-    """E1 raises on a table above the shared-memory limit (no fallback to
-    index_select), and E2, which stages nothing, gathers that table exactly
-    in one launch; E2 and E3 raise on a table that is not 16-byte aligned."""
+    """E2 and E3 raise on a table that is not 16-byte aligned (no fallback
+    to index_select), and E1 gathers it exactly through 4-byte pieces; E1
+    and E2 gather a table above a block's 227 KB of shared memory exactly,
+    one launch each."""
     rng = np.random.default_rng(7)
     idx = torch.from_numpy(rng.integers(0, 4096, size=1000, dtype=np.int32)).to(card)
     idx[-1] = 4095
     big = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(4096, 16),
                                         dtype=np.int32)).to(card)  # 256 KiB
+    flat = torch.arange(64 * 16 + 1, dtype=torch.int32, device=card)
+    odd = flat[1:].view(64, 16)
     _build.reset_counts()
-    with pytest.raises(ValueError):
-        G.gather_smem_rows(big, idx)
-    flat = torch.zeros(64 * 16 + 1, dtype=torch.int32, device=card)
     for fn in (G.gather_vec, G.gather_async):
         with pytest.raises(ValueError):
-            fn(flat[1:].view(64, 16), idx[:8] % 64)
+            fn(odd, idx[:8] % 64)
     assert _build.COUNTS == {}
-    got = G.gather_vec(big, idx)
+    got = G.gather_rows(odd, idx % 64)
     torch.cuda.synchronize()
-    assert _build.COUNTS == {"gather_vec": 1}
-    assert torch.equal(got, torch.index_select(big, 0, idx))
+    assert _build.COUNTS == {"gather_rows": 1}
+    assert torch.equal(got, torch.index_select(odd, 0, idx % 64))
+    for kind in ("gather_rows", "gather_vec"):
+        _build.reset_counts()
+        got = GATHERS[kind](big, idx)
+        torch.cuda.synchronize()
+        assert _build.COUNTS == {kind: 1}
+        assert torch.equal(got, torch.index_select(big, 0, idx))
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 16, 33])
+@pytest.mark.parametrize("m", [0, 1, 33, 1000, (1 << 16) + 3])
+def test_gather_rows_any_width(card, w, m):
+    """E1 at odd widths (4-byte pieces) and at W = 16 on aligned and
+    unaligned tables, from a table above a block's 227 KB of shared
+    memory, with a repeated row and the last row: one launch (none for
+    M = 0), equal to gather_rows_plain limb for limb."""
+    rng = np.random.default_rng(100 * w + m)
+    t = (G.SMEM_OPTIN_MAX // (4 * w)) + 5
+    flat = torch.from_numpy(rng.integers(-(2**31), 2**31, size=t * w + 1,
+                                         dtype=np.int32)).to(card)
+    idx = rng.integers(0, t, size=m, dtype=np.int32)
+    if m:
+        idx[m // 2] = idx[0]
+        idx[-1] = t - 1
+    t_idx = torch.from_numpy(idx).to(card)
+    for tab in (flat[: t * w].view(t, w), flat[1:].view(t, w)):
+        _build.reset_counts()
+        got = G.gather_rows(tab, t_idx)
+        torch.cuda.synchronize()
+        assert _build.COUNTS == ({"gather_rows": 1} if m else {})
+        assert tuple(got.shape) == (m, w)
+        assert torch.equal(got, G.gather_rows_plain(tab, t_idx))
+
+
+_TRAP = r"""
+import sys, torch
+from zkpoa_tpu_torch.ops import gather as G
+tab = torch.zeros((9, 5), dtype=torch.int32, device="cuda")
+idx = torch.tensor([0, int(sys.argv[1])], dtype=torch.int32, device="cuda")
+try:
+    G.gather_rows(tab, idx)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("refused:", e)
+    sys.exit(3)
+"""
+
+
+@pytest.mark.parametrize("bad", [9, -1])
+def test_gather_rows_traps_on_an_index_out_of_range(card, bad):
+    """An index past the table or below 0 traps in the kernel (as
+    index_select's device assert does); a trap ends the CUDA context, so it
+    runs in a process of its own."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _TRAP, str(bad)], cwd=repo, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": repo})
+    assert out.returncode == 3, (out.stdout, out.stderr)
 
 
 @pytest.mark.parametrize("w,m", [(16, 31), (16, 33), (16, (1 << 14) + 5), (16, (1 << 20) + 5),
@@ -561,10 +621,11 @@ def test_field_core_on_carry_heavy_edge_cases(card, which):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("log_n", [1, 4, 10, 11, 12, 21])
+@pytest.mark.parametrize("log_n", [1, 4, 10, 11, 12, 21, 22, 23, 24])
 def test_ntt_kernel_matches_plain(card, log_n, inverse, monkeypatch):
     """The pass kernel equals the per-stage plain version limb for limb, in
-    ceil(log_n / TILE_LOG) launches; and its schedule twin in tiles of 2^3."""
+    ceil(log_n / TILE_LOG) launches (three passes from 2^23, the recursive
+    layers' domains); and its schedule twin in tiles of 2^3."""
     from zkpoa_tpu_torch.ops import ntt as N
 
     gen = torch.Generator(device="cuda")

@@ -25,7 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from zkpoa_tpu_torch.ops import gather as G
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WRAPPERS = {"E1": G.gather_smem_rows, "E2": G.gather_vec, "E3": G.gather_async}
+WRAPPERS = {"E1": G.gather_rows, "E2": G.gather_vec, "E3": G.gather_async}
 
 
 @pytest.fixture(scope="module")
@@ -103,9 +103,8 @@ def test_wrappers_below_the_ring_depth(m):
 def _bad_cases():
     ok_tab = torch.zeros((64, 16), dtype=torch.int32)
     ok_idx = torch.zeros(8, dtype=torch.int32)
-    big = torch.zeros((G.SMEM_TABLE_MAX // 64 + 1, 16), dtype=torch.int32)  # > 227 KB
     return [
-        ("E1", big, ok_idx, ValueError),
+        ("E1", torch.zeros((0, 5), dtype=torch.int32), ok_idx, ValueError),  # rows from none
         ("E3", ok_tab, ok_idx[None], ValueError),  # idx not [M]
         ("E2", torch.zeros((64, 6), dtype=torch.int32), ok_idx, ValueError),
         ("E3", torch.zeros((64, 6), dtype=torch.int32), ok_idx, ValueError),
@@ -120,25 +119,63 @@ def _bad_cases():
 
 @pytest.mark.parametrize("case", range(len(_bad_cases())))
 def test_wrappers_refuse_what_their_kernels_cannot_take(case):
-    """Checked on any device, before the route is chosen: E1 never hands a
-    table above the shared-memory limit to index_select, nor E3 rows too
-    wide for its ring."""
+    """Checked on any device, before the route is chosen: E3 never hands
+    rows too wide for its ring to index_select, nor E1 rows of an empty
+    table."""
     kind, tab, idx, err = _bad_cases()[case]
     with pytest.raises(err):
         WRAPPERS[kind](tab, idx)
 
 
 def test_vec_takes_a_table_above_shared_memory():
-    """E2 stages nothing, so a table above the 227 KB a block can stage (the
-    table E1 refuses) gathers like index_select."""
-    t = G.SMEM_TABLE_MAX // 64 + 1
+    """E1 and E2 read the table where it lies, so a table above a block's
+    227 KB of shared memory gathers like index_select through both."""
+    t = G.SMEM_OPTIN_MAX // 64 + 1
     tab, idx = _inputs(t, 16, 300, seed=5)
     t_tab, t_idx = torch.from_numpy(tab.view(np.int32)), torch.from_numpy(idx)
-    got = G.gather_vec(t_tab, t_idx)
+    for fn in (G.gather_vec, G.gather_rows):
+        got = fn(t_tab, t_idx)
+        assert np.array_equal(got.numpy().view(np.uint32), tab[idx])
+        assert torch.equal(got, t_tab.index_select(0, t_idx))
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 16, 33])
+def test_rows_of_any_width_equal_the_pallas_body(jax_harness, w):
+    """E1 takes any row width (odd ones through 4-byte pieces on the card):
+    through its checks and the CPU route it equals E1's Pallas body in
+    interpret mode, with a repeated row and the table's last row."""
+    tab, idx = _inputs(97, w, 45, seed=1000 + w)
+    want = _jax_gather(jax_harness, "E1", tab, idx)
+    assert np.array_equal(want, tab[idx])
+    got = G.gather_rows(torch.from_numpy(tab.view(np.int32)), torch.from_numpy(idx))
+    assert tuple(got.shape) == (45, w)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("w", [3, 33])
+def test_rows_take_tables_above_the_old_staging_cap(w):
+    """E1 reads the table where it lies: tables above a block's 227 KB of
+    shared memory (at odd widths too) gather exactly."""
+    t = G.SMEM_OPTIN_MAX // (4 * w) + 7
+    tab, idx = _inputs(t, w, 500, seed=w)
+    idx[2] = t - 2
+    got = G.gather_rows(torch.from_numpy(tab.view(np.int32)), torch.from_numpy(idx))
     assert np.array_equal(got.numpy().view(np.uint32), tab[idx])
-    assert torch.equal(got, t_tab.index_select(0, t_idx))
-    with pytest.raises(ValueError):
-        G.gather_smem_rows(t_tab, t_idx)
+
+
+@pytest.mark.parametrize("w", [1, 5, 16])
+def test_rows_on_empty_and_out_of_range_indices(w):
+    """E1 on no indices returns [0, W] (an empty table too); an index past
+    the table or below 0 is refused, as index_select refuses it (the kernel
+    traps)."""
+    tab, _ = _inputs(9, w, 4, seed=w)
+    t_tab = torch.from_numpy(tab.view(np.int32))
+    none = torch.zeros(0, dtype=torch.int32)
+    assert tuple(G.gather_rows(t_tab, none).shape) == (0, w)
+    assert tuple(G.gather_rows(t_tab[:0], none).shape) == (0, w)
+    for bad in (9, -1):
+        with pytest.raises(IndexError):
+            G.gather_rows(t_tab, torch.tensor([0, bad], dtype=torch.int32))
 
 
 def test_async_ring_fits_shared_memory():
@@ -152,10 +189,10 @@ def test_async_ring_fits_shared_memory():
                      1024: (1, 16, 2), 1812: (1, 16, 2)}
     for w in range(4, G.ASYNC_W_MAX + 1, 4):
         warps, rows, depth, smem = G.async_plan(w)
-        assert smem <= G.SMEM_TABLE_MAX and 2 <= depth <= G.RING_MAX
+        assert smem <= G.SMEM_OPTIN_MAX and 2 <= depth <= G.RING_MAX
         assert depth == G.RING_MAX or (depth - 1) * rows * w * 4 >= G.RING_BYTES
     assert G.async_plan(G.ASYNC_W_MAX)[:3] == (1, 1, 2)
-    assert G.async_plan(G.ASYNC_W_MAX + 4)[3] > G.SMEM_TABLE_MAX
+    assert G.async_plan(G.ASYNC_W_MAX + 4)[3] > G.SMEM_OPTIN_MAX
 
 
 @pytest.mark.parametrize("w", [16, 128])

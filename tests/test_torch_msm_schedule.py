@@ -242,3 +242,18 @@ def test_msm_many_with_small_pieces_equals_host_and_jax(group):
         return
     jt = _Table(*jops.encode_affine(pts))
     assert M2.msm_tpu_heavy_split(jops, jt, M2.scalars_to_limbs_fast(s1), add, mul, c=5) == got[0]
+
+
+def test_accumulate_plain_in_chunks_equals_one_chunk(monkeypatch):
+    """The plain rounds add their pieces PLAIN_CHUNK at a time (which bounds
+    their memory on the card at 2^23 scalars): cut into chunks of 7 pieces,
+    the bucket sums equal those of one chunk limb for limb."""
+    curve, _jops, gen, _add, mul, _neg = GROUPS["g1"]
+    n = 120
+    xs, ys, valid = curve.encode_affine(_points(gen, mul, n, 4), "cpu")
+    plan = M.plan_msm(_sc(_scalars(n, 5)), 5, split_heavy=False, piece=3)
+    assert plan.n_pieces > 7
+    whole = M.accumulate_plain(curve, xs, ys, valid, 0, plan)
+    monkeypatch.setattr(M, "PLAIN_CHUNK", 7)
+    chunked = M.accumulate_plain(curve, xs, ys, valid, 0, plan)
+    assert all(torch.equal(a, b) for a, b in zip(whole, chunked))

@@ -17,7 +17,7 @@ from zkpoa_tpu_torch.experiments import msm_stages as H
 torch.set_num_threads(1)
 
 LIBRARY = ("g_take_rows", "g_take_xy_rows", "g_take_limbmaj", "g_take_pad128", "g_take_sorted")
-KERNELS = {"g_vmem_pallas": "gather_smem_rows", "g_vmem_take": "gather_vec",
+KERNELS = {"g_vmem_pallas": "gather_rows", "g_vmem_take": "gather_vec",
            "g_vmem_take_2p13": "gather_vec", "g_vmem_take_2p20": "gather_vec",
            "g_dma_pallas": "gather_async", "g_dma_msm": "gather_async"}
 STAGES = ("digits", "plan(sort)", *LIBRARY, *KERNELS, "full_group", "reduce", "msm")

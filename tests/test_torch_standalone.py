@@ -9,11 +9,15 @@ JAX package's circuits.
 3. The port's layer-two circuit (that run's batch-0 input, height 5) and
    layer-three circuit (full mode, balances [419, 238]) equal
    `zkpoa_tpu`'s exactly: constraint and wire counts, public count, packed
-   rows (constraint, wire, coefficient) and witness integers."""
+   rows (constraint, wire, coefficient) and witness integers.
+4. Every copied module whose first line says that only its imports are
+   rewritten (`COPIED`, among them `pipeline/fixtures.py`) equals its
+   original line for line once the import lines are set aside."""
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -119,3 +123,34 @@ def test_frontend_copy_builds_the_jax_packages_circuit(build):
     port = _packed_ints(r_port.pack(), BN254_FR.from_limbs)
     jax_ = _packed_ints(r_jax.pack(), lambda a: [int(x) for x in JFR.from_limbs(a)])
     assert port == jax_
+
+
+def _copy_header(path):
+    with open(path) as f:
+        return f.readline()
+
+
+# the port's modules copied with only their imports rewritten
+COPIED = sorted(
+    os.path.relpath(p, REPO) for p in _port_files()
+    if _copy_header(p).startswith("# Copy of ") and "only its imports are rewritten" in _copy_header(p)
+)
+
+
+def _without_imports(lines):
+    return [ln for ln in lines if not re.match(r"\s*(from \S+ import |import \S)", ln)]
+
+
+def test_copied_module_list():
+    assert "zkpoa_tpu_torch/pipeline/fixtures.py" in COPIED
+    assert len(COPIED) >= 18
+
+
+@pytest.mark.parametrize("copy", COPIED)
+def test_copied_module_equals_its_original_apart_from_imports(copy):
+    with open(os.path.join(REPO, copy)) as f:
+        header, *body = f.read().splitlines()
+    original = re.match(r"# Copy of (\S+);", header).group(1)
+    with open(os.path.join(REPO, original)) as f:
+        want = f.read().splitlines()
+    assert _without_imports(body) == _without_imports(want)

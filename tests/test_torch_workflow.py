@@ -1,14 +1,16 @@
 """The port's three-layer workflow (accounting mode) on the CPU.
 
 `zkpoa_tpu_torch.pipeline.workflow.run_workflow` on 2 fixture signatures
-(`zkpoa_tpu.pipeline.fixtures`) in 2 batches at tree height 3: the Merkle
+(`zkpoa_tpu_torch.pipeline.fixtures`) in 2 batches at tree height 3: the Merkle
 root, the balance sum and the layer-three public values must equal what
 `zkpoa_tpu`'s host modules compute (host Poseidon, signature parsing,
 Pedersen commitment), and every proof must verify under `zkpoa_tpu`'s host
 verifier. A second run against the same key cache (`-z`), resuming the
 finished batches (`-r`), must load the layer-three key instead of running
-setup and give the same layer-three proof; the cached layer-two key must
-load with the verifying key the first run wrote. Exact comparisons.
+setup and give the same layer-three proof, and its result must name the
+batch layers it loaded and the key it took from the cache (the first run's
+names none); the cached layer-two key must load with the verifying key the
+first run wrote. Exact comparisons.
 (The plain CPU versions make each setup and proof take tens of seconds, so
 the second run resumes rather than proving every layer again.)"""
 
@@ -22,7 +24,7 @@ import tests.conftest  # noqa: F401  (JAX on the CPU)
 
 from zkpoa_tpu.fields import curve25519 as JC
 from zkpoa_tpu.ops import poseidon as jax_poseidon_host
-from zkpoa_tpu.pipeline import fixtures
+from zkpoa_tpu_torch.pipeline import fixtures
 from zkpoa_tpu.pipeline.sigs import parse_signatures_file
 from zkpoa_tpu.prover import groth16 as jax_groth16
 from zkpoa_tpu.utils.serde import to_limbs_85x3
@@ -77,6 +79,7 @@ def test_accounting_workflow_matches_host_modules_and_reuses_cached_key(
     com = JC.pedersen_commitment(balance_sum, BLIND)
     assert (res.num_batches, res.merkle_height) == (2, HEIGHT)
     assert res.merkle_root == root
+    assert res.resumed == [] and res.cached_keys == []
     assert res.balance_sum == balance_sum
     assert res.layer_three_public == [r for ci in range(4) for r in to_limbs_85x3(com[ci])] + [root]
     files = _proof_files(res.build_dir)
@@ -94,6 +97,8 @@ def test_accounting_workflow_matches_host_modules_and_reuses_cached_key(
                                  ideal_batch_size=1, mode="accounting", zkey_cache=zkeys,
                                  tree_height=HEIGHT, resume=True, device="cpu")
     assert not calls
+    assert res2.resumed == ["layer_two batch 0", "layer_two batch 1"]
+    assert res2.cached_keys == ["layer_three_sum_2_batches"]
     assert res2.layer_three_public == res.layer_three_public
     with open(l3_proof) as f:
         assert f.read() == first

@@ -71,7 +71,7 @@ SIGNATURES = {
     # tables and segs host int64 arrays
     "zk_heavy_rounds": [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     # gather.cu: (tab, idx, T, W, M, out, stream)
-    "zk_gather_smem_rows": [_P, _P, _L, _I, _L, _P, _P],
+    "zk_gather_rows": [_P, _P, _L, _I, _L, _P, _P],
     "zk_gather_vec": [_P, _P, _L, _I, _L, _P, _P],
     "zk_gather_async": [_P, _P, _L, _I, _L, _P, _P],
 }

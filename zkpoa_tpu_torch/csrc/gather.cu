@@ -15,14 +15,19 @@
 // (M W 4 bytes), the indices read once (4 M) and each distinct indexed row
 // read once (D W 4, D <= min(T, M)), so at 3.35 TB/s a gather of 2^20 rows
 // of 64 B is about 30-40 us. A table of the harness's E1/E2 size (2^11-2^13
-// rows of 64 B) already sits in the 50 MB L2: the VMEM residency the TPU
-// kernels arrange comes for free here, and staging the table in every
-// block's shared memory (E1) only adds T W 4 bytes of L2 reads a block.
+// rows of 64 B) sits in the 50 MB L2, which gives the VMEM residency the
+// TPU kernels arrange: E1 and E2 read the table where it lies.
 //
 // Designs:
-//   E1 gather_smem_rows: each block stages the table in dynamic shared
-//      memory (opt-in above 48 KB, at most 227 KB a block), then one thread
-//      per output row copies its row word by word (grid-stride over rows).
+//   E1 gather_rows: no staging, any row width W and any table size. A warp
+//      takes SR = max(1, 32 ROWS_LOADS / R) consecutive output rows a step,
+//      where a row is R pieces: 16-byte pieces (R = W / 4) when W % 4 == 0
+//      and the table and output are 16-byte aligned, else 4-byte words
+//      (R = W). The step's SR R pieces are contiguous in `out`, and lane l
+//      moves pieces l, l + 32, ...: piece u is piece u % R of row u / R, read
+//      through the read-only path from the row its index names (lanes on one
+//      row read one index), ROWS_LOADS loads issued before their streaming
+//      stores. So every warp store is 32 consecutive pieces, whatever W.
 //   E2 gather_vec: no staging. A warp takes 32 K output rows a step (K = 1
 //      for rows of 16 words or more, 2 or 4 for narrower rows, so that a
 //      lane has at least 4 loads a step): each lane reads K of the step's
@@ -60,9 +65,9 @@
 //
 // Launch path: the card's SM count and shared-memory limits, and each
 // kernel's registers, are read once per device (std::call_once), and the
-// dynamic shared-memory opt-in of E1 and E3 is set then to the card's
-// limit. Blocks per SM come from those numbers without a runtime call, so a
-// later call makes cudaGetDevice (to pick the cached entry), the launch and
+// dynamic shared-memory opt-in of E3 is set then to the card's limit.
+// Blocks per SM come from those numbers without a runtime call, so a later
+// call makes cudaGetDevice (to pick the cached entry), the launch and
 // cudaGetLastError, and no other CUDA runtime call.
 //
 // An index outside [0, T) traps, as torch's own index_select asserts on
@@ -75,7 +80,8 @@
 
 namespace zk {
 
-constexpr int SMEM_THREADS = 256;  // E1 block size
+constexpr int ROWS_THREADS = 128;  // E1 block size
+constexpr int ROWS_LOADS = 4;      // E1 loads a lane issues before its stores
 constexpr int VEC_THREADS = 128;   // E2 block size
 constexpr int VEC_LOADS = 4;       // E2 16-byte loads a lane issues before its stores
 constexpr int ASYNC_WARPS = 4;     // E3 most warps per block
@@ -89,33 +95,36 @@ __device__ __forceinline__ void check_row(int r, long long T) {
 
 // --- E1 ------------------------------------------------------------------------
 
-// The whole table [T * W words] into this block's shared memory.
-__device__ void stage_table(uint4* s4, const uint32_t* __restrict__ tab, long long words) {
-  uint32_t* s = reinterpret_cast<uint32_t*>(s4);
-  long long done = 0;
-  if ((reinterpret_cast<uintptr_t>(tab) & 15) == 0) {
-    const long long v = words >> 2;
-    const uint4* t4 = reinterpret_cast<const uint4*>(tab);
-    for (long long k = threadIdx.x; k < v; k += blockDim.x) s4[k] = t4[k];
-    done = v << 2;
-  }
-  for (long long k = done + threadIdx.x; k < words; k += blockDim.x) s[k] = tab[k];
-  __syncthreads();
-}
-
-__global__ void gather_smem_rows_kernel(const uint32_t* __restrict__ tab,
-                                        const int* __restrict__ idx, long long T, int W,
-                                        long long M, uint32_t* __restrict__ out) {
-  extern __shared__ uint4 smem[];
-  stage_table(smem, tab, T * W);
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(smem);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < M; i += stride) {
-    const int r = idx[i];
-    check_row(r, T);
-    const uint32_t* src = s + (long long)r * W;
-    uint32_t* dst = out + i * W;
-    for (int k = 0; k < W; ++k) dst[k] = src[k];
+// V: uint4 (16-byte pieces) or uint32_t (words); R pieces a row, SR rows a
+// warp step.
+template <typename V>
+__global__ void __launch_bounds__(ROWS_THREADS)
+    gather_rows_kernel(const V* __restrict__ tab, const int* __restrict__ idx, long long T, int R,
+                       int SR, long long M, V* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * ROWS_THREADS + threadIdx.x) >> 5;
+  const long long warps = (long long)gridDim.x * (ROWS_THREADS / 32);
+  for (long long base = warp * SR; base < M; base += warps * SR) {
+    const int n = (M - base < SR ? (int)(M - base) : SR) * R;  // pieces this step
+    V* dst = out + base * R;
+    for (int u0 = 0; u0 < n; u0 += 32 * ROWS_LOADS) {
+      V v[ROWS_LOADS];
+#pragma unroll
+      for (int t = 0; t < ROWS_LOADS; ++t) {
+        const int u = u0 + 32 * t + lane;
+        if (u < n) {
+          const int i = u / R;
+          const int r = __ldg(idx + base + i);
+          check_row(r, T);
+          v[t] = __ldg(tab + (long long)r * R + (u - i * R));
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < ROWS_LOADS; ++t) {
+        const int u = u0 + 32 * t + lane;
+        if (u < n) __stcs(dst + u, v[t]);
+      }
+    }
   }
 }
 
@@ -329,11 +338,12 @@ static AsyncPlan async_plan(int W, size_t optin) {
 
 // --- the launch path: queried once per device -----------------------------------
 
-enum Kernel { ROWS, VEC4, VEC, ASYNC, N_KERNELS };
+enum Kernel { ROWS16, ROWS4, VEC4, VEC, ASYNC, N_KERNELS };
 
 const void* const KERNEL_FN[N_KERNELS] = {
-    (const void*)gather_smem_rows_kernel,   (const void*)gather_vec_kernel<4>,
-    (const void*)gather_vec_kernel<0>,      (const void*)gather_async_kernel,
+    (const void*)gather_rows_kernel<uint4>, (const void*)gather_rows_kernel<uint32_t>,
+    (const void*)gather_vec_kernel<4>,      (const void*)gather_vec_kernel<0>,
+    (const void*)gather_async_kernel,
 };
 
 struct GatherDevice {
@@ -366,7 +376,7 @@ static int query(int dev, GatherDevice* d) {
   for (int k = 0; k < N_KERNELS; ++k) {
     cudaFuncAttributes fa;
     cudaError_t err = cudaFuncGetAttributes(&fa, KERNEL_FN[k]);
-    if (err == cudaSuccess && (k == ROWS || k == ASYNC))
+    if (err == cudaSuccess && k == ASYNC)
       err = cudaFuncSetAttribute(KERNEL_FN[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  d->optin);
     if (err != cudaSuccess) return (int)err;
@@ -406,22 +416,32 @@ static long long min_ll(long long a, long long b) { return a < b ? a : b; }
 }  // namespace zk
 
 // tab [T, W] int32 (read as u32), idx [M] int32 in [0, T), out [M, W].
-// E1: the table staged in shared memory, one thread per output row.
-extern "C" int zk_gather_smem_rows(const void* tab, const void* idx, long long T, int W,
-                                   long long M, void* out, void* stream) {
+// E1: a warp a step of contiguous output rows, lanes across the step's
+// pieces; 16-byte pieces where W and both pointers allow, else words.
+extern "C" int zk_gather_rows(const void* tab, const void* idx, long long T, int W, long long M,
+                              void* out, void* stream) {
   using namespace zk;
   if (M <= 0) return 0;
   if (T <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   const GatherDevice* d = nullptr;
-  int err = device(&d);
+  const int err = device(&d);
   if (err) return err;
-  const size_t smem = (size_t)T * W * 4;
-  if (smem > (size_t)d->optin) return (int)cudaErrorInvalidValue;
-  const long long blocks = min_ll((M + SMEM_THREADS - 1) / SMEM_THREADS, fill(*d, ROWS, SMEM_THREADS, smem));
-  gather_smem_rows_kernel<<<(unsigned)blocks, SMEM_THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(tab), static_cast<const int*>(idx), T, W, M,
-      static_cast<uint32_t*>(out));
+  const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(tab) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int R = vec ? W / 4 : W;
+  const int SR = R >= 32 * ROWS_LOADS ? 1 : 32 * ROWS_LOADS / R;
+  const long long warps = (M + SR - 1) / SR;
+  const long long blocks = min_ll((warps + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32),
+                                  fill(*d, vec ? ROWS16 : ROWS4, ROWS_THREADS, 0));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    gather_rows_kernel<uint4><<<(unsigned)blocks, ROWS_THREADS, 0, st>>>(
+        static_cast<const uint4*>(tab), static_cast<const int*>(idx), T, R, SR, M,
+        static_cast<uint4*>(out));
+  else
+    gather_rows_kernel<uint32_t><<<(unsigned)blocks, ROWS_THREADS, 0, st>>>(
+        static_cast<const uint32_t*>(tab), static_cast<const int*>(idx), T, R, SR, M,
+        static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }
 

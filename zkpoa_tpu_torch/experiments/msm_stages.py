@@ -28,7 +28,7 @@ Stages, by the JAX harness's names where it has the stage:
   g_take_pad128   index_select of [N, 128] rows (x|y repeated 8 times), at
                   N / 8 rows
   g_take_sorted   g_take_rows with the indices sorted
-  g_vmem_pallas   E1 `gather_smem_rows`: table [2^11, 16], 2^15 rows
+  g_vmem_pallas   E1 `gather_rows`: table [2^11, 16], 2^15 rows
   g_vmem_take     E2 `gather_vec`: table [2^11, 16], 2^13 rows (the shape
                   E2 ran at while it staged the table)
   g_vmem_take_2p13  E2 at the JAX harness's shape: [2^13, 16], 2^13 rows
@@ -84,7 +84,7 @@ SEED = 0
 
 # stage -> (wrapper, table rows, row words, rows gathered); None: the MSM's N
 GATHER_KERNELS = {
-    "g_vmem_pallas": (G.gather_smem_rows, 1 << 11, 16, 1 << 15),
+    "g_vmem_pallas": (G.gather_rows, 1 << 11, 16, 1 << 15),
     "g_vmem_take": (G.gather_vec, 1 << 11, 16, 1 << 13),
     "g_dma_pallas": (G.gather_async, 1 << 18, 128, 1 << 14),
     "g_dma_msm": (G.gather_async, None, 16, None),

@@ -9,11 +9,13 @@ vectorised take) and E3 `dma_gather` (:148, one DMA per row through an
 `torch.index_select`.
 
 The designs are the card's, not the TPU's (`csrc/gather.cu` has the
-details): E1 stages the table in each block's shared memory; E2 stages
-nothing and reads rows through the read-only cache, where a small table
-stays resident, 16 bytes a lane; E3 moves stages of up to 32 rows with TMA
-bulk copies into a shared-memory ring per warp and writes each stage back
-with one bulk store.
+details): E1 and E2 stage nothing and read rows through the read-only
+cache, where a small table stays resident; E1 takes rows of any width, a
+warp's lanes across the pieces of its contiguous output rows (16 bytes
+where the width and alignment allow, else 4), E2 rows of whole 16-byte
+pieces; E3 moves stages of up to 32 rows with TMA bulk copies into a
+shared-memory ring per warp and writes each stage back with one bulk
+store.
 
 Tables are [T, W] int32 (the port's limb type; the kernels move the bits
 as u32) and indices [M] int32. Each wrapper checks device, dtype, shape,
@@ -30,10 +32,9 @@ import torch
 
 from .. import _build
 
-# Dynamic shared memory a block may opt into on sm_90 (227 KB): the largest
-# table E1 can stage, and the most E3's ring may take. The launchers also
-# check the card's own value.
-SMEM_TABLE_MAX = 232_448
+# Dynamic shared memory a block may opt into on sm_90 (227 KB): the most
+# E3's ring may take. Its launcher also checks the card's own value.
+SMEM_OPTIN_MAX = 232_448
 ASYNC_WARPS = 4  # E3 most warps per block, each with its own ring
 STAGE_ROWS = 32  # E3 most rows a stage
 RING_BYTES = 16_384  # E3 bytes of loads a warp keeps in flight, at least
@@ -49,7 +50,7 @@ def async_plan(w: int) -> tuple[int, int, int, int]:
         stage = rows * w * 4
         depth = max(2, min(RING_MAX, -(-RING_BYTES // stage) + 1))
         smem = (warps * depth + 1) // 2 * 16 + warps * depth * stage
-        if smem <= SMEM_TABLE_MAX or (warps, rows) == (1, 1):
+        if smem <= SMEM_OPTIN_MAX or (warps, rows) == (1, 1):
             return warps, rows, depth, smem
         if warps > 1:
             warps //= 2
@@ -58,7 +59,7 @@ def async_plan(w: int) -> tuple[int, int, int, int]:
 
 
 # the widest rows E3 takes: one warp a block with a ring of two one-row stages
-ASYNC_W_MAX = (SMEM_TABLE_MAX - 16) // 8 // 4 * 4
+ASYNC_W_MAX = (SMEM_OPTIN_MAX - 16) // 8 // 4 * 4
 
 
 def gather_rows_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -80,12 +81,9 @@ def _check(kind: str, tab: torch.Tensor, idx: torch.Tensor):
     t, w = tab.shape
     if w == 0 or (t == 0 and idx.shape[0] > 0):
         raise ValueError(f"{kind}: empty table {tuple(tab.shape)}")
-    if kind == "gather_smem_rows" and t * w * 4 > SMEM_TABLE_MAX:
-        raise ValueError(f"{kind}: table of {t * w * 4} bytes exceeds the {SMEM_TABLE_MAX} bytes "
-                         f"of shared memory a block can hold")
     if kind in ("gather_vec", "gather_async") and w % 4 != 0:
         raise ValueError(f"{kind}: rows of {w} words are not a whole number of 16-byte lanes")
-    if kind == "gather_async" and async_plan(w)[3] > SMEM_TABLE_MAX:
+    if kind == "gather_async" and async_plan(w)[3] > SMEM_OPTIN_MAX:
         raise ValueError(f"{kind}: rows of {w} words do not fit its shared-memory ring")
     return t, w, idx.shape[0]
 
@@ -98,16 +96,18 @@ def _gather(kind: str, tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     ptr = tab.data_ptr()
-    if kind != "gather_smem_rows" and ptr % 16:
+    if kind != "gather_rows" and ptr % 16:
         raise ValueError(f"{kind}: the table must be 16-byte aligned for 16-byte loads")
     _build.launch(f"zk_{kind}", kind, ptr, idx.data_ptr(), t, w, m, out.data_ptr())
     return out
 
 
-def gather_smem_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """E1: the table staged in each block's shared memory, one thread per
-    output row (replaces `vmem_gather`, experiments/msm_stages.py:91)."""
-    return _gather("gather_smem_rows", tab, idx)
+def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """E1: rows of any width from a table of any size, nothing staged; a
+    warp moves contiguous output rows, its lanes across their 16-byte
+    pieces where the width and both pointers allow, else their words
+    (replaces `vmem_gather`, experiments/msm_stages.py:91)."""
+    return _gather("gather_rows", tab, idx)
 
 
 def gather_vec(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

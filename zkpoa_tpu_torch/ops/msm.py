@@ -67,6 +67,9 @@ COMBINE_FAN_IN = 8  # sums one thread of B5/B6's combine adds, per level
 REDUCE_THREADS = 256  # threads per window in B7 (fewer when nb is smaller)
 ROUNDS_MAX_SEGS = 64  # segments one launch of heavy_rounds takes (csrc/heavy_rounds.cu)
 ROUNDS_MAX_TABLES = 8  # distinct tables one launch of heavy_rounds reads
+# pieces a round of accumulate_plain adds at once: its limb products hold
+# about 6 KB a piece, so a 2^23-scalar plan's 6M pieces would need 36 GiB
+PLAIN_CHUNK = 1 << 20
 
 # copies of MSM results to the host (each one waits on the device), by group
 HOST_SYNCS: Dict[str, int] = {}
@@ -317,19 +320,20 @@ def accumulate_plain(curve, xs, ys, valid, offset: int, plan: WitnessMsmPlan) ->
         raise ValueError(f"a piece is longer than the plan's {plan.piece} entries")
     sums = _inf64(curve, (plan.n_pieces,), device)
     for r in range(plan.piece):
-        lanes = torch.nonzero(ps + r < pe).flatten()
-        if lanes.numel() == 0:
+        active = torch.nonzero(ps + r < pe).flatten()
+        if active.numel() == 0:
             break
-        enc = flat[ps[lanes] + r].to(torch.int64)
-        neg = enc >= n
-        row = torch.where(neg, enc - n, enc) - offset
-        rowc = row.clamp(0, max(n_rows - 1, 0))
-        ok = (row >= 0) & (row < n_rows) & valid[rowc]
-        y = ys[rowc]
-        y = ar.select(neg, ar.sub(ar.zeros_like(y), y), y)
-        new = jac_add_affine(ar, tuple(t[lanes] for t in sums), xs[rowc], y, ok)
-        for t, nt in zip(sums, new):
-            t[lanes] = nt
+        for lanes in active.split(PLAIN_CHUNK):
+            enc = flat[ps[lanes] + r].to(torch.int64)
+            neg = enc >= n
+            row = torch.where(neg, enc - n, enc) - offset
+            rowc = row.clamp(0, max(n_rows - 1, 0))
+            ok = (row >= 0) & (row < n_rows) & valid[rowc]
+            y = ys[rowc]
+            y = ar.select(neg, ar.sub(ar.zeros_like(y), y), y)
+            new = jac_add_affine(ar, tuple(t[lanes] for t in sums), xs[rowc], y, ok)
+            for t, nt in zip(sums, new):
+                t[lanes] = nt
     for start, end in plan.combine:
         sums = _group_sums_plain(curve, ar, sums, start, end)
     return tuple(L.to_i32(t) for t in sums)

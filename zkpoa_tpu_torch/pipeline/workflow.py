@@ -70,6 +70,15 @@ class WorkflowResult:
     commitment: tuple
     layer_three_public: List[int]
     timings: Dict[str, float] = field(default_factory=dict)
+    # circuit -> constraint count ("layer_one batch 0", ..., "layer_three")
+    constraints: Dict[str, int] = field(default_factory=dict)
+    # stage -> peak host RSS and peak device memory, MB (utils/trace.py)
+    peaks: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    # batch layers loaded from an earlier run's files ("layer_two batch 0")
+    # and proving keys loaded from the key cache (their names): a run with
+    # either did not time every stage
+    resumed: List[str] = field(default_factory=list)
+    cached_keys: List[str] = field(default_factory=list)
 
 
 def _log(msg: str) -> None:
@@ -127,6 +136,7 @@ def run_workflow(
     # dies mid-prove still leaves what it completed
     bench_path = os.path.join(build_dir, "benchmarks.txt")
     bench_lines: List[str] = []
+    constraints: Dict[str, int] = {}
 
     def _flush_bench():
         with open(bench_path, "w") as f:
@@ -168,8 +178,11 @@ def run_workflow(
         os.makedirs(bdir, exist_ok=True)
         bdirs.append(bdir)
 
+    resumed: List[str] = []
+    cached_keys: List[str] = []
+
     def _setup(r1cs, name):
-        return cached_setup(r1cs, zkey_cache, name, device, seed=setup_seed)
+        return cached_setup(r1cs, zkey_cache, name, device, seed=setup_seed, hits=cached_keys)
 
     def _resume_layer(bi: int, name: str) -> Optional[dict]:
         """A completed batch layer from its files (every stage restarts
@@ -185,6 +198,7 @@ def run_workflow(
         with open(need[1]) as f:
             vkj = json.load(f)
         _log(f"resume: {name} batch {bi} loaded from {bdirs[bi]}")
+        resumed.append(f"{name} batch {bi}")
         return {"san": san, "vk_json": vkj}
 
     # -- layer 1 (batches of one size share one key: full_workflow.sh:303-323)
@@ -209,6 +223,7 @@ def run_workflow(
                 sigs = [LayerOneInput.from_json_entry(l1_inp_json, i) for i in range(len(batch))]
                 c1 = layer_one_circuit(sigs)
                 r1, w1 = c1.compile()
+                constraints[f"layer_one batch {bi}"] = r1.n_constraints
                 _bench(f"layer_one batch {bi}: {r1.n_constraints} constraints, "
                        f"{r1.n_wires} wires ({len(batch)} sigs)")
                 l1_builds.append((r1, w1, c1.public_values))
@@ -265,12 +280,10 @@ def run_workflow(
                     inp2.proof = san1s[bi]
                 with open(os.path.join(bdirs[bi], "layer_two_input.json"), "w") as f:
                     json.dump(_jsonable(inp2.__dict__), f)
-                inner_vk1 = None
                 if mode == "recursive":
-                    from ..models.gadgets.pairing_gadget import PreparedVK
-
-                    inner_vk1 = _prepared_vk_cached(pk1_vk_jsons[bi], PreparedVK)
-                c2 = layer_two_circuit(inp2, tree_height=height, inner_vk=inner_vk1)
+                    c2 = recursive_layer_two_circuit(inp2, pk1_vk_jsons[bi], height)
+                else:
+                    c2 = layer_two_circuit(inp2, tree_height=height)
             else:
                 accounts = [
                     MembershipWitnessInput(address=a.address, balance=a.balance,
@@ -280,6 +293,7 @@ def run_workflow(
                 ]
                 c2 = membership_sum_circuit(root, accounts, tree_levels=height - 1)
             r2, w2 = c2.compile()
+            constraints[f"layer_two batch {bi}"] = r2.n_constraints
             _bench(f"layer_two batch {bi}: {r2.n_constraints} constraints, "
                    f"{r2.n_wires} wires ({len(batch)} sigs, height {height}, {mode})")
             l2_builds.append((r2, w2, c2.public_values))
@@ -338,12 +352,13 @@ def run_workflow(
             c3.bind_output(out, total)
             key3 = f"layer_three_sum_{bplan.num_batches}_batches"
         r3, w3 = c3.compile()
+        constraints["layer_three"] = r3.n_constraints
         _bench(f"layer_three: {r3.n_constraints} constraints, {r3.n_wires} "
                f"wires ({bplan.num_batches} batches, {mode})")
     with Stage("layer3 setup"):
         pk3 = _setup(r3, key3)
     with Stage("layer3 prove"):
-        proof3 = prove(pk3, r3, w3, device, seed="l3")
+        proof3 = prove(pk3, r3, w3, device, seed="l3", log=_log)
     vk3 = groth16.VerifyingKey.from_json(pk3.vk_json)
     if not groth16.verify(vk3, proof3, c3.public_values):
         raise RuntimeError("layer-3 proof does not verify")
@@ -369,7 +384,8 @@ def run_workflow(
     return WorkflowResult(
         build_dir=build_dir, num_sigs=n, num_batches=bplan.num_batches, merkle_height=height,
         merkle_root=root, balance_sum=balance_sum, commitment=dechunk_commitment(l3_public),
-        layer_three_public=l3_public, timings=timings,
+        layer_three_public=l3_public, timings=timings, constraints=constraints,
+        peaks=tracer.peaks, resumed=resumed, cached_keys=cached_keys,
     )
 
 
@@ -386,8 +402,8 @@ def _shape_groups(batches) -> List[List[int]]:
 def _prove_many(pk, r1cs, wits, seeds: List[str], device) -> List:
     """prove() for several same-shape witnesses, in turn on one device
     (the JAX package's sequential path; the same seeds give the same
-    proofs)."""
-    return [prove(pk, r1cs, w, device, seed=s) for w, s in zip(wits, seeds)]
+    proofs), each logging its phase ends."""
+    return [prove(pk, r1cs, w, device, seed=s, log=_log) for w, s in zip(wits, seeds)]
 
 
 _PVK_CACHE: Dict[str, object] = {}
@@ -430,6 +446,32 @@ def _layer_two_input(batch: List[AccountAttestation], batch_proofs, root: int,
         path_elements=[p.path_elements for p in batch_proofs],
         path_indices=[p.path_indices for p in batch_proofs],
     )
+
+
+def recursive_layer_two_circuit(inp2: LayerTwoInput, vk1_json: dict, height: int):
+    """Layer two of the recursive mode: the batch's membership and balance
+    statement, with layer one's sanitized proof (`inp2.proof`) verified
+    in-snark against layer one's verifying key."""
+    from ..models.gadgets.pairing_gadget import PreparedVK
+
+    if inp2.proof is None:
+        raise ValueError("the recursive layer two needs layer one's sanitized proof")
+    return layer_two_circuit(inp2, tree_height=height,
+                             inner_vk=_prepared_vk_cached(vk1_json, PreparedVK))
+
+
+def load_layer_two_input(bdir: str):
+    """(LayerTwoInput, layer one's vkey JSON) of a batch directory that
+    `run_workflow` wrote: layer_two_input.json with
+    layer_one_sanitized_proof.json as its proof, and layer_one_vkey.json."""
+    def load(name):
+        with open(os.path.join(bdir, name)) as f:
+            return json.load(f)
+
+    ints = lambda x: [ints(y) for y in x] if isinstance(x, list) else int(x)  # noqa: E731
+    d = {k: ints(v) for k, v in load("layer_two_input.json").items() if k != "proof"}
+    inp2 = LayerTwoInput(**d, proof=load("layer_one_sanitized_proof.json"))
+    return inp2, load("layer_one_vkey.json")
 
 
 def _jsonable(obj):

@@ -14,7 +14,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -68,14 +68,17 @@ def load_key(path: str, device) -> ProvingKey:
 
 
 def cached_setup(r1cs: R1CS, cache_dir: Optional[str], name: str, device,
-                 seed: str = "zkpoa-test-srs") -> ProvingKey:
+                 seed: str = "zkpoa-test-srs", hits: Optional[List[str]] = None) -> ProvingKey:
     """`setup_device` with an on-disk cache. `name` is the size-encoded key
-    name of the reference, e.g. 'layer_two_full_2_sigs_12_height'."""
+    name of the reference, e.g. 'layer_two_full_2_sigs_12_height'; a key
+    loaded from the cache appends its name to `hits`."""
     if cache_dir is None:
         return setup_device(r1cs, device, seed=seed)
     os.makedirs(cache_dir, exist_ok=True)
     path = os.path.join(cache_dir, f"{name}.{_shape_digest(r1cs, seed)}.pt")
     if os.path.exists(path):
+        if hits is not None:
+            hits.append(name)
         return load_key(path, device)
     pk = setup_device(r1cs, device, seed=seed)
     save_key(path, pk)

@@ -21,7 +21,11 @@ equivalent: a `Tracer` that owns a run's log directory and emits
     records, so the reference's log-scraping habits carry over;
   * optional profiler traces per stage via `profile=True`.
 
-Host CPU/RSS come from `resource.getrusage`; device-side cost shows up in
+Host CPU/RSS come from `resource.getrusage`. Where the process uses the
+card, the STATS line adds its peak device memory so far
+(`torch.cuda.max_memory_allocated`, never reset here, so a caller's own
+reading stands), as peak-rss is the host's peak so far; both are kept per
+stage in `Tracer.peaks`. Device time shows up in
 the profiler traces, not the STATS line.
 """
 
@@ -60,6 +64,8 @@ class Tracer:
         self.profile = profile
         self.echo = echo
         self.timings: Dict[str, float] = timings if timings is not None else {}
+        # stage -> {"peak_rss_mb", "peak_device_mb"}: the process's peaks at its end
+        self.peaks: Dict[str, Dict[str, float]] = {}
         self._seq = 0
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
@@ -130,11 +136,17 @@ class Stage:
         cpu = cpu1 - self.cpu0
         ok = exc_type is None
         pct = int(100 * cpu / wall) if wall > 0 else 0
+        peak = {"peak_rss_mb": rss / 1024}
+        device = ""
+        if torch.cuda.is_initialized():
+            peak["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+            device = f" ; peak-device {peak['peak_device_mb']:.0f}Mb"
+        self.tr.peaks[self.name] = peak
         self.tr._emit(
             self.name,
             f"[zkpoa] === {self.name} {'done' if ok else 'FAILED'} | "
             f"STATS: time ({_fmt_hms(wall)}) {wall:.2f}s ; cpu {cpu:.2f}s {pct}% ; "
-            f"peak-rss {rss / 1024:.0f}Mb",
+            f"peak-rss {rss / 1024:.0f}Mb{device}",
         )
         self.tr._record(self.name, self.t0, wall, cpu, rss, ok)
         return False
