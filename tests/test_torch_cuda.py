@@ -854,3 +854,108 @@ def test_fixed_base_kernel_on_sparse_and_ragged_scalars(card, curve, n):
     pick = [0, 1, 37, 500, 519, n - 1]
     assert curve.decode_jac(tuple(t[pick] for t in got)) == [
         mul(base, scal[i]) if scal[i] else None for i in pick]
+
+
+def _ladder_inputs(curve, n, seed, card):
+    """Points P_i = [g_i] G (Jacobian from B8, z not 1), one at infinity,
+    and scalars 0, 1, 2, r - 1, 2^64 - 1, then random 254-bit ones."""
+    base, add, mul = _group(curve)
+    rng = np.random.default_rng(seed)
+    g = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
+    p = fixed_base_mul_batch(curve, base, add,
+                             torch.from_numpy(host.scalars_to_limbs_fast(g)).to(card), 254)
+    p = tuple(t.contiguous() for t in p)
+    if n > 5:
+        p[2][5] = 0  # P_5 at infinity (its x and y stay as they were)
+    ks = [0, 1, 2, bn254.R - 1, (1 << 64) - 1] + [
+        int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n - 5)]
+    ks = ks[:n]
+    return g, p, ks, torch.from_numpy(host.scalars_to_limbs_fast(ks)).to(card)
+
+
+@pytest.mark.parametrize("n", [1, 1003, 1 << 14])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_scalar_mul_kernel_matches_plain_and_host(card, curve, n):
+    """K1: one launch, limbs equal to the plain ladder, decoded points
+    equal to host multiples."""
+    from zkpoa_tpu_torch.ops.curve import scalar_mul_batch, scalar_mul_plain
+
+    base, _add, mul = _group(curve)
+    g, p, ks, sc = _ladder_inputs(curve, n, 11 + n, card)
+    _build.reset_counts()
+    got = scalar_mul_batch(curve, p, sc, 254)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {f"scalar_mul_g{curve.group}": 1}
+    for a, b in zip(got, scalar_mul_plain(curve, p, sc, 254)):
+        assert torch.equal(a, b)
+    pick = sorted({0, n // 2, n - 1} | ({3, 4, 5} if n > 5 else set()))
+    want = [None if (i == 5 and n > 5) else mul(base, g[i] * ks[i] % bn254.R) for i in pick]
+    assert curve.decode_jac(tuple(t[pick] for t in got)) == want
+
+
+@pytest.mark.parametrize("log_half", [0, 1, 5, 9])
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_group_ntt_stage_kernel_matches_plain(card, curve, log_half):
+    """K2 on 1024 points (in place, one launch) against the plain stage;
+    the twiddle table starts with 1, as every stage's does."""
+    from zkpoa_tpu_torch.ops.group_ntt import stage, stage_plain
+
+    _g, p, _ks, sc = _ladder_inputs(curve, 1024, 21 + log_half, card)
+    tw = sc[: 1 << log_half].clone()
+    tw[0] = torch.tensor(host.scalars_to_limbs_fast([1])[0], device=card)
+    want = stage_plain(curve, p, tw, log_half)
+    _build.reset_counts()
+    got = stage(curve, tuple(t.clone() for t in p), tw, log_half)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == {f"group_ntt_stage_g{curve.group}": 1}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_ceremony_setup_on_card_equals_cpu(card, tmp_path):
+    """The dev ceremony, its Lagrange points and a contributed ceremony key
+    on the card equal the CPU's (plain versions) table for table."""
+    from zkpoa_tpu_torch.prover import ptau as P
+
+    c = Circuit()
+    out = c.public_output()
+    x, y = c.var(5), c.var(9)
+    c.bind_output(out, c.mul(x, y) * 3 + x - 7)
+    r1cs, wit = c.compile()
+    path = str(tmp_path / "dev.ptau")
+    P.write_dev_ptau(path, 4, seed="card", device="cuda")
+    cpu_path = str(tmp_path / "cpu.ptau")
+    P.write_dev_ptau(cpu_path, 4, seed="card", device="cpu")
+    with open(path, "rb") as f, open(cpu_path, "rb") as g:
+        assert f.read() == g.read()
+    pt = P.read_ptau(path, "cuda")
+    assert P.verify_ptau(pt)
+    lag = BN254_G2.decode_jac(P._lagrange_g2(pt["tau_g2"], 16))
+    assert lag == BN254_G2.decode_jac(P._lagrange_g2(P.read_ptau(path, "cpu")["tau_g2"], 16))
+    keys = []
+    for device in ("cuda", "cpu"):
+        keys.append(P.beacon(P.contribute(P.setup_from_ptau(r1cs, path, device), "e"), "h"))
+    gpu, cpu = keys
+    for name in ("a_query", "b1_query", "c_query", "h_query", "b2_query"):
+        tg, tc = getattr(gpu, name), getattr(cpu, name)
+        for k in ("xs", "ys", "valid"):
+            assert torch.equal(getattr(tg, k).cpu(), getattr(tc, k)), name
+    assert gpu.vk_json == cpu.vk_json
+    proof = prove(gpu, r1cs, wit, "cuda", seed="ptau")
+    vk = groth16.VerifyingKey.from_json(gpu.vk_json)
+    assert groth16.verify(vk, proof, [wit[w] for w in range(1, r1cs.n_public + 1)])
+
+
+def test_ladder_launchers_refuse_what_they_cannot_take(card):
+    _g, p, _ks, sc = _ladder_inputs(BN254_G1, 8, 5, card)
+    with pytest.raises(ValueError):
+        FK.scalar_mul(FK.G1, p, sc[:7], 254)  # one scalar short
+    with pytest.raises(ValueError):
+        FK.scalar_mul(FK.G1, p, sc, 0)
+    with pytest.raises(ValueError):
+        FK.group_ntt_stage(FK.G1, p, sc[:3], 1)  # tw must be [half, 8]
+    with pytest.raises(ValueError):
+        FK.group_ntt_stage(FK.G1, tuple(t[:6] for t in p), sc[:4], 2)  # 2 half does not divide
+    with pytest.raises(ValueError):
+        FK.scalar_mul(FK.G1, tuple(t.reshape(-1)[1:57].reshape(7, 8) for t in p),
+                      sc[:7], 254)  # not 16-byte aligned

@@ -143,7 +143,8 @@ def _without_imports(lines):
 
 def test_copied_module_list():
     assert "zkpoa_tpu_torch/pipeline/fixtures.py" in COPIED
-    assert len(COPIED) >= 18
+    assert "zkpoa_tpu_torch/utils/binfmt.py" in COPIED
+    assert len(COPIED) >= 19
 
 
 @pytest.mark.parametrize("copy", COPIED)

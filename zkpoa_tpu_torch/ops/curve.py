@@ -165,6 +165,14 @@ class _CurveBase:
         shape = tuple(batch_shape) + self.coord_shape
         return tuple(torch.zeros(shape, dtype=torch.int32, device=device) for _ in range(3))
 
+    def from_affine(self, xs, ys, valid) -> Jac:
+        """Affine table (xs, ys, valid) -> Jacobian points with z = 1, and
+        z = 0 (infinity) where valid is False."""
+        one = L.to_i32(self.arith(xs.device).one_like(L.u32(xs[:1]))[0])
+        z = torch.where(valid.reshape(valid.shape + (1,) * len(self.coord_shape)), one,
+                        torch.zeros_like(one))
+        return xs, ys, z.contiguous()
+
 
 @dataclass(frozen=True)
 class CurveOps(_CurveBase):
@@ -204,6 +212,35 @@ class CurveOps(_CurveBase):
             zi2 = zi * zi % mod
             out.append((x * zi2 % mod, y * zi2 % mod * zi % mod))
         return out
+
+
+def scalar_mul_plain(ops, p: Jac, scalars: torch.Tensor, n_bits: int = 254) -> Jac:
+    """Plain version of K1 (port of `curve_jax.py:264` `scalar_mul_batch`):
+    MSB-first double-then-add over bits n_bits - 1 .. 0 of the plain-limb
+    scalars [N, 8], every lane doubling each step and taking the add where
+    its bit is set, by the plain formulas in int64. Bits above the highest
+    one any lane sets leave the all-zero accumulator as it is, and a step
+    whose bit no lane sets adds nothing, so both are skipped."""
+    ar = ops.arith(scalars.device)
+    sc = L.u32(scalars)
+    pt = tuple(L.u32(t) for t in p)
+    acc = tuple(torch.zeros_like(t) for t in pt)
+    bits = [((sc[:, b // 32] >> (b % 32)) & 1).bool() for b in range(n_bits)]
+    top = max((b for b in range(n_bits) if bool(bits[b].any())), default=-1)
+    for b in range(top, -1, -1):
+        acc = jac_double(ar, acc)
+        if bool(bits[b].any()):
+            acc = _sel3(ar, bits[b], jac_add(ar, acc, pt), acc)
+    return tuple(L.to_i32(t) for t in acc)
+
+
+def scalar_mul_batch(ops, p: Jac, scalars: torch.Tensor, n_bits: int = 254) -> Jac:
+    """[k_i] P_i for Jacobian points [N] (G1 or G2, by `ops`) and plain-limb
+    scalars [N, 8]. CUDA tensors launch kernel K1 (csrc/scalar_mul.cu, one
+    launch); CPU tensors take the plain version."""
+    if scalars.is_cuda:
+        return FK.scalar_mul(ops.group, p, scalars, n_bits)
+    return scalar_mul_plain(ops, p, scalars, n_bits)
 
 
 def jac_to_affine_mont(spec: FieldSpec, p: Jac):

@@ -5,7 +5,8 @@ one tensor [..., 2, 8] (c0, c1 stacked) rather than JAX's tuple, so that a
 coordinate is one contiguous array for the kernels. `G2Ops` launches the
 G2 instances of the point kernels (csrc/point_ops.cu) for CUDA tensors and
 runs the shared plain formulas of `curve.py` over `fp2_arith_plain` for
-CPU tensors.
+CPU tensors; `curve.py` `scalar_mul_batch` takes it for the G2 instance
+of the ladder kernel K1 (csrc/scalar_mul.cu).
 """
 
 from __future__ import annotations

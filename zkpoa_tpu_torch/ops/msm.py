@@ -156,12 +156,13 @@ class WitnessMsmPlan:
     (`combine_levels`); max_pieces is the most pieces any bucket has and
     combine_depth the longest chain of full adds through the levels."""
 
-    def __init__(self, c: int, n: int, order, starts, heavy, piece: int = PIECE):
+    def __init__(self, c: Optional[int], n: int, order, starts, heavy, piece: int = PIECE,
+                 shape: Optional[Tuple[int, int]] = None):
         if piece <= 0:
             raise ValueError(f"piece must be positive, got {piece}")
         self.c = c
         self.n = n
-        self.nw, self.nb = geometry(c)
+        self.nw, self.nb = geometry(c) if shape is None else shape
         if self.nw * n >= 2**31:
             raise ValueError("the plan's flat positions must fit in int32")
         self.order = order
@@ -254,6 +255,27 @@ def plan_msm(scalars: torch.Tensor, c: Optional[int] = None,
     starts = torch.zeros((nw, nb + 1), dtype=torch.int64, device=scalars.device)
     starts[:, 1:] = torch.cumsum(counts[:, :nb], dim=1)
     return WitnessMsmPlan(c, n, order, starts.to(torch.int32).contiguous(), heavy, piece)
+
+
+def bucket_plan(row: torch.Tensor, negative: torch.Tensor, bucket: torch.Tensor,
+                n_buckets: int, n_rows: int, piece: int = PIECE) -> WitnessMsmPlan:
+    """A plan of one window whose buckets are arbitrary ids, for
+    `accumulate`: entry e adds table row row[e] (its negation where
+    negative[e]) to bucket bucket[e]. The sign-encoded rows sorted by
+    bucket fill the window's order; the index space n (the sign threshold)
+    is at least the table's rows and the entries, and the order's tail
+    past the entries is never read."""
+    device = row.device
+    n_entries = int(row.shape[0])
+    n = max(n_rows, n_entries, 1)
+    bucket, perm = torch.sort(bucket.to(torch.int64), stable=True)
+    order = torch.zeros((1, n), dtype=torch.int32, device=device)
+    order[0, :n_entries] = (row.to(torch.int64) + negative.to(torch.int64) * n)[perm].to(
+        torch.int32)
+    starts = torch.zeros((1, n_buckets + 1), dtype=torch.int64, device=device)
+    starts[0, 1:] = torch.cumsum(torch.bincount(bucket, minlength=n_buckets), 0)
+    return WitnessMsmPlan(None, n, order, starts.to(torch.int32).contiguous(), [], piece,
+                          shape=(1, n_buckets))
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,10 @@ in the reference's JSON shapes.
     Pedersen commitment); `mode="recursive"` also verifies every
     lower-layer proof inside the next circuit. In every mode the host
     pairing verifier checks each proof.
-  * Proving keys come from the development setup, cached by circuit shape
-    in `zkey_cache` (`prover/cache.py`).
+  * Proving keys come from the development setup or, with `ptau_path`,
+    from a powers-of-tau ceremony file plus the optional phase-2
+    contribution and beacon (`prover/ptau.py`), cached by circuit shape in
+    `zkey_cache` (`prover/cache.py`).
   * One card: batches of one shape are proved in turn against one key, and
     the Merkle tree is built on the main thread (a second host thread
     would only contend with circuit building for the interpreter lock).
@@ -24,6 +26,7 @@ CLI, the reference's 3-argument contract (full_workflow.sh:43):
     python -m zkpoa_tpu_torch.pipeline.workflow <sigs.json> <anon_set.csv> <blind>
         [-b BUILD_DIR] [-p IDEAL_BATCH_SIZE] [-m MODE] [-z ZKEY_CACHE]
         [-H TREE_HEIGHT] [-r] [--profile] [--device cuda|cpu]
+        [--ptau FILE [--contribute ENTROPY] [--beacon HASH]]
 """
 
 from __future__ import annotations
@@ -112,7 +115,14 @@ def run_workflow(
     profile: bool = False,
     resume: bool = False,
     device: str = "cuda",
+    ptau_path: Optional[str] = None,
+    contribute_entropy: Optional[str] = None,
+    beacon_hash: Optional[str] = None,
 ) -> WorkflowResult:
+    if (contribute_entropy or beacon_hash) and not ptau_path:
+        raise ValueError(
+            "contribute_entropy/beacon_hash require ptau_path — phase-2 "
+            "randomization is only applied to a ceremony-derived key")
     tracer = Tracer(log_dir=None, profile=profile)
     timings = tracer.timings
 
@@ -182,7 +192,15 @@ def run_workflow(
     cached_keys: List[str] = []
 
     def _setup(r1cs, name):
-        return cached_setup(r1cs, zkey_cache, name, device, seed=setup_seed, hits=cached_keys)
+        # keys derive from the ceremony file when one is given (reference
+        # g16_setup.sh:240-278), each setup's split going to benchmarks.txt
+        def split(msg):
+            _log(f"{name} {msg}")
+            _bench(f"{name} {msg}")
+
+        return cached_setup(r1cs, zkey_cache, name, device, seed=setup_seed, hits=cached_keys,
+                            ptau_path=ptau_path, contribute_entropy=contribute_entropy,
+                            beacon_hash=beacon_hash, log=split)
 
     def _resume_layer(bi: int, name: str) -> Optional[dict]:
         """A completed batch layer from its files (every stage restarts
@@ -504,12 +522,26 @@ def main(argv=None) -> int:
                          "(partial) run of the same build dir")
     ap.add_argument("--device", default="cuda",
                     help="torch device of every setup, proof and tree (default cuda)")
+    ap.add_argument("--ptau", default=None, metavar="PATH",
+                    help="powers-of-tau ceremony file: layer keys derive from it instead of "
+                         "the seeded dev SRS (reference g16_setup.sh ptau contract)")
+    ap.add_argument("--contribute", default=None, metavar="ENTROPY",
+                    help="phase-2 contribution entropy applied to every ptau-derived key "
+                         "(requires --ptau)")
+    ap.add_argument("--beacon", default=None, metavar="HASH",
+                    help="phase-2 beacon randomizer applied after the contribution "
+                         "(requires --ptau)")
     args = ap.parse_args(argv)
+    if (args.contribute or args.beacon) and not args.ptau:
+        ap.error("--contribute/--beacon require --ptau: phase-2 "
+                 "randomization only applies to a ceremony-derived key "
+                 "(without it the seeded dev SRS would be used silently)")
     res = run_workflow(
         args.sigs, args.anon_set, args.blinding_factor,
         build_root=args.build_dir, ideal_batch_size=args.batch_size, mode=args.mode,
         zkey_cache=args.zkey_cache, tree_height=args.tree_height, profile=args.profile,
-        resume=args.resume, device=args.device,
+        resume=args.resume, device=args.device, ptau_path=args.ptau,
+        contribute_entropy=args.contribute, beacon_hash=args.beacon,
     )
     _log(json.dumps({"build_dir": res.build_dir, "balance_sum": str(res.balance_sum),
                      "merkle_root": str(res.merkle_root),

@@ -3,11 +3,18 @@
     python -m zkpoa_tpu_torch.prover setup  --layer one --input in.json --device cuda -Z keys/
     python -m zkpoa_tpu_torch.prover prove  --layer one --input in.json --device cuda -o out/
     python -m zkpoa_tpu_torch.prover verify vkey.json proof.json public.json
+    python -m zkpoa_tpu_torch.prover export --layer one --input in.json -o out/ [--zkey]
+    python -m zkpoa_tpu_torch.prover prove-zkey --zkey k.zkey --wtns w.wtns -o out/
+    python -m zkpoa_tpu_torch.prover sanitize vkey.json proof.json public.json -o s.json
 
 Port of `zkpoa_tpu/prover/__main__.py` with the same flags, plus `--device`
 (where the key and the proving run live: `cuda` unless `cpu` is asked for)
 and `--repeat` (prove N times against the one key, to time cold and warm
-proofs). The key is made by the development setup on the device each run.
+proofs). `setup` and `prove` make the key by the development setup on the
+device each run. `export` writes the iden3 artifacts snarkjs and
+rapidsnark read (.r1cs, .wtns and, with `--zkey`, the dev key's .zkey);
+`prove-zkey` proves from a .zkey and a .wtns alone (the rapidsnark
+prover's contract) and self-verifies.
 Circuits come from the port's own frontend (`models/layers.py`). `prove`
 self-verifies every proof with the host pairing check and writes
 proof.json, public.json, the vkey and stats.json (phase times and the
@@ -140,6 +147,67 @@ def _cmd_prove(args) -> int:
     return 0
 
 
+def _cmd_export(args) -> int:
+    """Emit .r1cs, .wtns and, with --zkey, the .zkey of the (cached) dev
+    key for a layer input (port of `__main__.py:133` `_cmd_export`)."""
+    from ..utils import binfmt
+    from ..utils.binfmt_torch import write_zkey_device
+    from .cache import cached_setup
+
+    _circuit, name, r1cs, witness, _ = _build(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+    base = os.path.join(args.out_dir, name)
+    binfmt.write_r1cs(base + ".r1cs", r1cs)
+    binfmt.write_wtns(base + ".wtns", witness)
+    _log(f"export: {base}.r1cs ({r1cs.n_constraints} constraints), .wtns")
+    if args.zkey:
+        pk = cached_setup(r1cs, args.zkey_dir, name, args.device, seed=args.seed)
+        t0 = time.time()
+        write_zkey_device(base + ".zkey", pk, r1cs)
+        _log(f"export: {base}.zkey ({time.time() - t0:.2f}s)")
+    return 0
+
+
+def _cmd_prove_zkey(args) -> int:
+    """Prove from foreign artifacts only, a .zkey and a .wtns (the
+    rapidsnark prover CLI contract, ref scripts/g16_prove.sh:246-252;
+    port of `__main__.py:155` `_cmd_prove_zkey`)."""
+    from ..utils import binfmt
+    from ..utils.binfmt_torch import read_zkey_device
+    from . import groth16
+    from .prove import _sync, prove
+
+    t0 = time.time()
+    pk, r1cs = read_zkey_device(args.zkey, args.device)
+    witness = binfmt.read_wtns(args.wtns)
+    _sync(args.device)
+    _log(f"prove-zkey: zkey {pk.n_vars} vars / domain {pk.domain_size} loaded "
+         f"({time.time() - t0:.2f}s)")
+    t0 = time.time()
+    proof = prove(pk, r1cs, witness, args.device, seed=args.proof_seed, log=_log)
+    _sync(args.device)
+    _log(f"prove-zkey: proof in {time.time() - t0:.2f}s")
+    publics = witness[1 : pk.n_public + 1]
+    vk = groth16.VerifyingKey.from_json(pk.vk_json)
+    if not groth16.verify(vk, proof, publics):
+        raise RuntimeError("self-verify failed")
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "proof.json"), "w") as f:
+        json.dump(proof.to_json(), f)
+    with open(os.path.join(args.out_dir, "public.json"), "w") as f:
+        json.dump([str(x) for x in publics], f)
+    _log(f"prove-zkey: wrote proof.json/public.json to {args.out_dir}")
+    return 0
+
+
+def _cmd_sanitize(args) -> int:
+    from ..pipeline.sanitize import sanitize_files
+
+    sanitize_files(args.vkey, args.proof, args.public, args.out)
+    print(f"sanitized -> {args.out}")
+    return 0
+
+
 def _cmd_verify(args) -> int:
     from .groth16 import verify_files
 
@@ -152,7 +220,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="zkpoa_tpu_torch.prover",
                                  description="Groth16 toolchain on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for cmd, fn in (("setup", _cmd_setup), ("prove", _cmd_prove)):
+    for cmd, fn in (("setup", _cmd_setup), ("prove", _cmd_prove), ("export", _cmd_export)):
         p = sub.add_parser(cmd)
         p.add_argument("--layer", choices=("one", "two", "three"), required=True)
         p.add_argument("--input", required=True, help="reference-shaped layer input JSON")
@@ -163,17 +231,36 @@ def main(argv=None) -> int:
                        help="verify the embedded lower-layer proof in-snark")
         if cmd == "setup":
             p.add_argument("-Z", "--zkey-dir", default=None, help="directory for the vkey")
+        elif cmd == "export":
+            p.add_argument("-Z", "--zkey-dir", default=None, help="proving-key cache dir")
+            p.add_argument("-o", "--out-dir", required=True)
+            p.add_argument("--zkey", action="store_true", help="also run setup and emit a .zkey")
         else:
             p.add_argument("-o", "--out-dir", required=True)
             p.add_argument("--proof-seed", default="zkpoa-proof")
             p.add_argument("--repeat", type=int, default=1,
                            help="prove this many times against the one key")
         p.set_defaults(fn=fn)
+    p = sub.add_parser("prove-zkey", help="prove from a .zkey + .wtns "
+                       "(rapidsnark prover CLI contract)")
+    p.add_argument("--zkey", required=True)
+    p.add_argument("--wtns", required=True)
+    p.add_argument("-o", "--out-dir", required=True)
+    p.add_argument("--proof-seed", default="zkpoa-proof")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu for small circuits)")
+    p.set_defaults(fn=_cmd_prove_zkey)
     p = sub.add_parser("verify")
     p.add_argument("vkey")
     p.add_argument("proof")
     p.add_argument("public")
     p.set_defaults(fn=_cmd_verify)
+    p = sub.add_parser("sanitize")
+    p.add_argument("vkey")
+    p.add_argument("proof")
+    p.add_argument("public")
+    p.add_argument("-o", "--out", required=True)
+    p.set_defaults(fn=_cmd_sanitize)
     args = ap.parse_args(argv)
     return args.fn(args)
 

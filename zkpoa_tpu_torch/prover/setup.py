@@ -4,8 +4,10 @@ Port of `zkpoa_tpu/prover/setup.py`: `ProvingKey` (:41), the device point
 tables (:100, :132), `_lagrange_at_tau_device` (:304),
 `_setup_scalars_device` (:329), `_g1_query_device` / `_g2_query_device`
 (:171, :204), `_g1_points_from_scalars` / `_g2_points_from_scalars` and
-`setup_device` (:541). The trapdoors come from the same seeded hash, so for
-the same circuit and seed the port makes the same key as the JAX package.
+`setup_device` (:541), and the host-list `setup` (:485), built as
+`setup_device` then `host_lists`. The trapdoors come from the same seeded
+hash, so for the same circuit and seed the port makes the same key as the
+JAX package.
 
 SECURITY NOTE: a development setup; the toxic waste is derived from a seed.
 """
@@ -208,3 +210,43 @@ def setup_device(r1cs: R1CS, device, seed: str = "zkpoa-test-srs",
         b2_query=b2_query, beta2=beta2, delta2=delta2,
         vk_json=vk.to_json(), h_basis=h_basis,
     )
+
+
+def table_points(tab: DeviceG1Points) -> List:
+    """A G1 or G2 table as host affine points (None where not valid): one
+    copy of the coordinates to the host, decoded from Montgomery form."""
+    n = len(tab)
+    if n == 0:
+        return []
+    k = tab.xs[0].numel() // 8  # limbs rows a coordinate: 1 (Fq) or 2 (Fq2)
+    vals = L.BN254_FQ.decode(
+        torch.cat([tab.xs.reshape(n, k, 8), tab.ys.reshape(n, k, 8)], 1).reshape(-1, 8))
+    valid = tab.valid.tolist()
+    out = []
+    for i, ok in enumerate(valid):
+        v = vals[2 * k * i : 2 * k * (i + 1)]
+        if not ok:
+            out.append(None)
+        elif k == 1:
+            out.append((v[0], v[1]))
+        else:
+            out.append(((v[0], v[1]), (v[2], v[3])))
+    return out
+
+
+def host_lists(pk: ProvingKey) -> ProvingKey:
+    """The key with every query table decoded to a host list of affine
+    points (the JAX package's host-list `ProvingKey`: what the copied
+    `utils/binfmt.write_zkey` and the tests take)."""
+    kw = dict(pk.__dict__)
+    for name in ("a_query", "b1_query", "c_query", "h_query", "b2_query"):
+        kw[name] = table_points(getattr(pk, name))
+    return ProvingKey(**kw)
+
+
+def setup(r1cs: R1CS, seed: str = "zkpoa-test-srs", h_basis: str = "monomial",
+          device="cuda") -> ProvingKey:
+    """Development Groth16 setup with host-list tables (port of
+    `zkpoa_tpu/prover/setup.py:485` `setup`): `setup_device` on `device`,
+    then `host_lists`."""
+    return host_lists(setup_device(r1cs, device, seed=seed, h_basis=h_basis))
