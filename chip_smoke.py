@@ -12,9 +12,11 @@ Phases, each printing a line:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: nvcc builds csrc/*.cu into build/torch_kernels/; the registers,
      stack frame and spills of every MSM kernel (B5/B6's piece and combine
-     kernels, B7, Horner), of the fold kernel, of the NTT pass kernel and of
+     kernels, B7, Horner), of the fold kernel, of the NTT pass kernel, of
      the two kernels on the row-accumulation core (B8 fixed_base and the
-     heavy-value rounds) from the ptxas log, on a line of their own;
+     heavy-value rounds) and of the ladder kernels (K1 scalar_mul, K2
+     ntt_stage; G1, and G2 on one and on three threads a lane) from the
+     ptxas log, on a line of their own;
   3. kernels vs plain, exact equality of limbs, with both times and each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its int32
      operations over the card's int32 issue rate):
@@ -131,18 +133,21 @@ Phases, each printing a line:
      contributed vk, and contribute + beacon of it give the workflow's vk;
      then `export --zkey` of layer one and `prove-zkey` from the .zkey and
      .wtns (its proof verified under the .zkey's vk), with the seconds of
-     each; then K1 (G1 2^16 lanes, G2 2^14) and K2 (the top
-     stage of a 2^16 G1 / 2^14 G2 NTT and the half = 1 stage) against
-     their plain versions, every lane, exact limbs, each with its bound
-     from this run's scalars (a doubling a bit below the top one, an add a
-     set bit), and the same kernels at the shapes layer one's ceremony
-     setup gives them: K2's top and half = 1 stages over 3 x 2^21 G1 and
-     2^21 G2 points, K1's 1/m scale over their outputs and K1 over layer
-     one's wire entries of coefficient other than +-1 (G1 A, B and the
-     C-side sum; G2 B), each launched at full size with 4096 of its lanes
-     or butterflies held; the ladders of all of a group's checks run in
-     one plain call (its time is each check's plain_ms); then the
-     h-query's mixed add (B2) at all 2^21 - 1 points;
+     each; then K1 (G1 2^16 lanes, G2 2^14; a scalar a lane, and one
+     scalar for every lane) and K2 (the top stage of a 2^16 G1 / 2^14 G2
+     NTT and the half = 1 stage) against their plain versions, every lane,
+     exact limbs, each with its bound from this run's scalars
+     (`ladder_products`: a doubling a bit below the top one and the adds
+     of the best signed window, the same count whatever ladder runs) and
+     its share of it, and the same kernels at the shapes layer one's
+     ceremony setup gives them: K2's top and half = 1 stages over 3 x 2^21
+     G1 and 2^21 G2 points, K1's 1/m scale (one scalar) over their outputs
+     and K1 over layer one's wire entries of coefficient other than +-1
+     (G1 A, B and the C-side sum; G2 B; ordered by coefficient), each
+     launched at full size with 4096 of its lanes or butterflies held; the
+     ladders of all of a group's checks run in one plain call (its time is
+     each check's plain_ms); then the h-query's mixed add (B2) at all
+     2^21 - 1 points;
   8. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
      4 random leaves and their proofs checked with the host Poseidon;
   9. profile: one more layer-one key under torch.profiler (the setup
@@ -183,6 +188,12 @@ archive), and prints it as one JSON line: an A/B of setup on one card.
 
 runs only phase 7's gather rows, the same way, on the package at ROOT and
 its harness's shapes: an A/B of E1-E3.
+
+    python3 chip_smoke.py --ceremony-profile ROOT
+
+writes a power-21 dev ceremony, times layer one's phase-1 key from it (its
+split) and K1's and K2's launches at that setup's shapes, on the package
+at ROOT, as that package launches them: an A/B of the ceremony path.
 """
 
 import contextlib
@@ -384,8 +395,8 @@ class Checks:
             lat = f", latency bound {chain * self.mont_latency_ms:.4f} ms ({chain} products)"
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"{name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} B, {work[1]:.4g} int32 ops)"
-            f"{lat}")
+            f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} B, {work[1]:.4g} int32 ops; "
+            f"share {bound_ms / ms:.1%}){lat}")
         if err != 0:
             fail(f"{name}: kernel disagrees with its plain version")
 
@@ -1286,21 +1297,45 @@ def zkey_round_trip(torch, bdir, tmp):
     return {"export_s": t1 - t0, "prove_zkey_s": t2 - t1, "zkey_bytes": size}
 
 
-def ladder_work_limbs(np, limbs, weight=None):
-    """(doubles, adds) of the ladders over plain-limb scalars [N, 8] (numpy
-    int32 or uint32), scalar i counted weight[i] times: from a lane's top
-    set bit, a doubling a bit below it and an add a set bit below it."""
-    dbl = adds = 0
-    for s in range(0, len(limbs), 1 << 16):
-        part = np.ascontiguousarray(limbs[s : s + (1 << 16)]).view("<u4")
-        bits = np.unpackbits(part.view(np.uint8), axis=1, bitorder="little")
-        ones = bits.sum(1, dtype=np.int64)
-        top = 255 - np.argmax(bits[:, ::-1], axis=1).astype(np.int64)
-        w = (np.ones(len(part), np.int64) if weight is None else weight[s : s + (1 << 16)]) * (
-            ones > 0)
-        dbl += int((top * w).sum())
-        adds += int(((ones - 1) * w).sum())
-    return dbl, adds
+def ladder_products(torch, limbs, group, weight=None) -> int:
+    """Montgomery products of the ladders [k] P over plain-limb scalars
+    [N, 8] (a tensor; scalar i counted weight[i] times), by a rule that
+    counts the same work whatever ladder runs: the scalar's doublings (its
+    bit length - 1) and the adds of the best signed window for it, the
+    width-w NAF for w in 2..6 (its non-zero digits - 1 adds, and for w > 2
+    a doubling and 2^(w-2) - 1 adds for the odd multiples 3 P .. (2^(w-1)
+    - 1) P); k = 0 costs nothing. A binary ladder's adds of set bits, the
+    old rule, charge more than a window needs."""
+    pd, pa = PRODUCTS["double"][group], PRODUCTS["add"][group]
+    uniq, inv = torch.unique(limbs.reshape(-1, 8), dim=0, return_inverse=True)
+    cnt = torch.zeros(len(uniq), dtype=torch.int64, device=limbs.device)
+    wt = (torch.ones(len(inv), dtype=torch.int64, device=limbs.device) if weight is None
+          else torch.as_tensor(weight, dtype=torch.int64, device=limbs.device))
+    cnt.index_add_(0, inv, wt)
+    u = uniq.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, device=limbs.device)
+    bits = ((u[:, :, None] >> shifts) & 1).reshape(len(u), 256)
+    bits = torch.cat([bits, torch.zeros_like(bits[:, :16])], dim=1)
+    nz = bits.any(1)
+    bitlen = 256 - torch.argmax(bits[:, :256].flip(1), dim=1)
+    best = None
+    for w in range(2, 7):
+        win = sum(bits[:, s : s + 256 + 8] << s for s in range(1, w))
+        nnz = torch.zeros_like(cnt)
+        carry = torch.zeros_like(cnt)
+        nxt = torch.zeros_like(cnt)
+        for t in range(256 + 8):  # LSB first; a digit consumes w positions
+            at = nxt == t
+            b = bits[:, t] + carry
+            odd, even = at & (b == 1), at & (b != 1)
+            nnz += odd.to(torch.int64)
+            carry = torch.where(odd, (1 + win[:, t] >= 1 << (w - 1)).to(torch.int64),
+                                torch.where(even, b >> 1, carry))
+            nxt = torch.where(odd, nxt + w, torch.where(even, nxt + 1, nxt))
+        cost = (nnz - 1) * pa + ((pd + ((1 << (w - 2)) - 1) * pa) if w > 2 else 0)
+        best = cost if best is None else torch.minimum(best, cost)
+    per = torch.where(nz, (bitlen - 1) * pd + best, torch.zeros_like(best))
+    return int((per * cnt).sum())
 
 
 def path_sample(rng, n, k):
@@ -1316,22 +1351,27 @@ def path_sample(rng, n, k):
 
 def check_ladders(torch, checks, ptau_path, r1cs):
     """Step 6: K1, K2 and the elementwise G1 mixed add against their plain
-    versions, exact limbs, each with its bound from this run's scalars:
-      * test shapes, every lane: K1 over 2^16 G1 / 2^14 G2 random points
-        and scalars (0, 1, 2 and r - 1 among them); K2's top stage and its
-        half = 1 stage over 2^16 G1 / 2^14 G2 points;
+    versions, exact limbs, each with its bound from this run's scalars
+    (`ladder_products`):
+      * test shapes, every lane: K1 over 2^16 G1 / 2^14 G2 random points,
+        a scalar a lane (0, 1, 2 and r - 1 among them) and one scalar for
+        every lane; K2's top stage (one block) and its half = 1 stage (2^15
+        / 2^13 blocks, every twiddle 1) over 2^16 G1 / 2^14 G2 points;
       * the shapes layer one's ceremony setup gives them (2^21 domain),
         each launched at full size with PATH_SAMPLE of its lanes or
         butterflies held: K2's top and half = 1 stages over the 3 x 2^21 G1
         points of the three sources side by side and over the 2^21 G2
-        points; K1's 1/m scale over the top stages' outputs; K1 over layer
-        one's wire entries whose coefficient is not +-1 (G1: those of A, B
-        and the C-side sum; G2: those of B) at their rows and coefficients;
+        points, on the domain's twiddle digits; K1's 1/m scale over the top
+        stages' outputs, one scalar [8] for every lane as the path gives
+        it; K1 over layer one's wire entries whose coefficient is not +-1
+        (G1: those of A, B and the C-side sum; G2: those of B) at their rows
+        and coefficients, ordered by coefficient as the path orders them;
       * the mixed add of the 2^21 - 1 monomial h-query points, every point.
     The plain ladder's time hardly grows with its lanes at these sizes, so
     the ladders of all of a group's K1 and K2 checks (K1's lanes, K2's
-    scaled v) run in one plain call, whose time is each of those checks'
-    plain_ms; K2's adds are then `butterfly_plain` on the same u."""
+    scaled v) run in one plain call on their digits, whose time is each of
+    those checks' plain_ms; K2's adds are then `butterfly_plain` on the
+    same u."""
     import numpy as np
 
     from zkpoa_tpu_torch import host
@@ -1339,8 +1379,8 @@ def check_ladders(torch, checks, ptau_path, r1cs):
     from zkpoa_tpu_torch.fields.bn254 import R
     from zkpoa_tpu_torch.ops import field_kernels as FK
     from zkpoa_tpu_torch.ops import limbs as L
-    from zkpoa_tpu_torch.ops.curve import (BN254_G1, fixed_base_mul_batch, jac_add_affine,
-                                           run_plain, scalar_mul_plain)
+    from zkpoa_tpu_torch.ops.curve import (BN254_G1, booth_digits, fixed_base_mul_batch,
+                                           jac_add_affine, ladder_plain, run_plain)
     from zkpoa_tpu_torch.ops.fp2 import BN254_G2
     from zkpoa_tpu_torch.ops.group_ntt import butterfly_plain
     from zkpoa_tpu_torch.ops.limbs import BN254_FQ, BN254_FR
@@ -1357,22 +1397,13 @@ def check_ladders(torch, checks, ptau_path, r1cs):
     rng = np.random.default_rng(3)
     rev = _bitrev(log_m, "cuda")
     table = BN254_FR.from_mont(_twiddles(log_m, True, "cuda"))  # w^-j, j < m/2
-    minv = BN254_FR.to_limbs([pow(m, -1, R)])
+    digits = booth_digits(table)  # the path's: once a domain
+    minv = torch.from_numpy(BN254_FR.to_limbs([pow(m, -1, R)])[0]).to("cuda")  # one [8]
     lim = lambda ks: torch.from_numpy(host.scalars_to_limbs_fast(ks)).to("cuda")  # noqa: E731
     rand = lambda k: [int.from_bytes(rng.bytes(32), "big") % R for _ in range(k)]  # noqa: E731
 
     def rows(x, sel):
         return x if sel is None else tuple(t[sel] for t in x) if isinstance(x, tuple) else x[sel]
-
-    def scaled_entries(parts):
-        """(rows, coefficient ids) of the entries the path scales by K1:
-        parts [(row offset, PackedMatrix)], coefficients other than 0, +-1."""
-        rs, cids = [], []
-        for off, mat in parts:
-            keep = ~zero[mat.cid] & ~unit[mat.cid]
-            rs.append(off + mat.idx[keep].astype(np.int64))
-            cids.append(mat.cid[keep])
-        return np.concatenate(rs), np.concatenate(cids)
 
     out = {}
     groups = (
@@ -1384,36 +1415,38 @@ def check_ladders(torch, checks, ptau_path, r1cs):
     )
     for curve, base, add, log_n, srcs, parts in groups:
         g, cb = curve.group, COORD_BYTES[curve.group]
-        # (name, kernel rows, ladder points, scalars, butterfly u or None, kernel fn, work, reps)
+        # (name, kernel rows, ladder points, digits, butterfly u or None, kernel fn, work, reps)
         jobs = []
 
-        def ops(dbl, adds):
-            return (dbl * PRODUCTS["double"][g] + adds * PRODUCTS["add"][g]) * MONT_OPS
-
-        def ladder_job(name, p, sc, sel=None, work_sc=None, weight=None):
-            """K1 over every lane of p; lanes sel (all when None) held; the
-            bound from work_sc's ladders (sc's when None), weight times each."""
+        def ladder_job(name, p, sc, sel=None, weight=None):
+            """K1 over every lane of p (sc: a scalar a lane, or one [8]);
+            lanes sel (all when None) held; the bound from the lanes'
+            scalars, weight[i] times scalar i where given."""
             got = FK.scalar_mul(g, p, sc, 254)
-            dbl, adds = ladder_work_limbs(np, sc.cpu().numpy() if work_sc is None else work_sc,
-                                          weight)
-            jobs.append((name, rows(got, sel), rows(p, sel), rows(sc, sel), None,
+            n = p[0].shape[0]
+            k = n if sel is None else len(sel)
+            one = sc.dim() == 1
+            dig = booth_digits(sc).expand(k, -1) if one else booth_digits(rows(sc, sel))
+            prods = ladder_products(torch, sc, g, [n] if one else weight)
+            jobs.append((name, rows(got, sel), rows(p, sel), dig, None,
                          lambda: FK.scalar_mul(g, p, sc, 254),
-                         (sc.shape[0] * (6 * cb + 32), ops(dbl, adds)), 5 if sel is None else 2))
+                         (n * 6 * cb + sc.numel() * 4, prods * MONT_OPS), 5 if sel is None else 2))
 
-        def stage_job(name, pts, tw, log_half, b, reps):
-            """K2's stage over a copy of pts; butterflies b held."""
+        def stage_job(name, pts, dig, tw, log_half, b, reps):
+            """K2's stage over a copy of pts on the twiddles' digits dig
+            (their limbs tw, for the bound); butterflies b held."""
             half, n = 1 << log_half, pts[0].shape[0]
-            got = FK.group_ntt_stage(g, tuple(t.clone() for t in pts), tw, log_half)
+            got = FK.group_ntt_stage(g, tuple(t.clone() for t in pts), dig, log_half)
             j = b % half
             u = (b // half) * 2 * half + j
             ui, vi, ji = (torch.from_numpy(a).to("cuda") for a in (u, u + half, j))
-            dbl, adds = ladder_work_limbs(np, tw.cpu().numpy(),
-                                          np.full(half, n // (2 * half), np.int64))
+            prods = ladder_products(torch, tw, g, np.full(half, n // (2 * half), np.int64))
             jobs.append((name, tuple(torch.cat([t[ui], t[vi]]) for t in got),
-                         rows(pts, vi), tw[ji], rows(pts, ui),
-                         lambda: FK.group_ntt_stage(g, tuple(t.clone() for t in pts), tw,
+                         rows(pts, vi), dig[ji], rows(pts, ui),
+                         lambda: FK.group_ntt_stage(g, tuple(t.clone() for t in pts), dig,
                                                     log_half),
-                         (n * 6 * cb + 32 * half, ops(dbl, adds + n)), reps))
+                         (n * 6 * cb + half * dig.shape[1],
+                          (prods + n * PRODUCTS["add"][g]) * MONT_OPS), reps))
             return got
 
         # test shapes, every lane
@@ -1421,45 +1454,45 @@ def check_ladders(torch, checks, ptau_path, r1cs):
         p = tuple(t.contiguous() for t in fixed_base_mul_batch(curve, base, add, lim(rand(n)),
                                                                254))
         ladder_job(f"scalar_mul_g{g}[2^{log_n} lanes]", p, lim([0, 1, 2, R - 1] + rand(n - 4)))
+        ladder_job(f"scalar_mul_g{g}[2^{log_n} lanes, one scalar]", p, lim(rand(1))[0])
         for log_half in (log_n - 1, 0):
+            tw = lim([1] + rand((1 << log_half) - 1))
             stage_job(f"group_ntt_stage_g{g}[2^{log_n} points, half 2^{log_half}]", p,
-                      lim([1] + rand((1 << log_half) - 1)), log_half, np.arange(n // 2), 5)
+                      booth_digits(tw), tw, log_half, np.arange(n // 2), 5)
         # layer one's path shapes, sampled; lagrange_points's first stage
         # input: the sources bit-reversed, side by side
         pts = tuple(torch.cat([src[k][:m][rev] for src in srcs]).contiguous() for k in range(3))
         n = pts[0].shape[0]
         tag = f"{len(srcs)} x 2^{log_m}"
         for log_half in (log_m - 1, 0):
+            step = m >> (log_half + 1)
             got = stage_job(f"group_ntt_stage_g{g}[{tag} points, half 2^{log_half}, "
-                            f"{PATH_SAMPLE} butterflies sampled]", pts,
-                            table[:: m >> (log_half + 1)].contiguous(), log_half,
-                            path_sample(rng, n // 2, PATH_SAMPLE), 2)
+                            f"{PATH_SAMPLE} butterflies sampled]", pts, digits[::step],
+                            table[::step], log_half, path_sample(rng, n // 2, PATH_SAMPLE), 2)
             if log_half == log_m - 1:
                 top = got
         del got
         sel = torch.from_numpy(path_sample(rng, n, PATH_SAMPLE)).to("cuda")
-        ladder_job(f"scalar_mul_g{g}[{tag} lanes, 1/m, {PATH_SAMPLE} sampled]", top,
-                   torch.from_numpy(minv).to("cuda").expand(n, 8).contiguous(), sel, minv,
-                   np.array([n]))
-        r_idx, cid = scaled_entries(parts)
+        ladder_job(f"scalar_mul_g{g}[{tag} lanes, 1/m, one scalar, {PATH_SAMPLE} sampled]", top,
+                   minv, sel)
+        r_idx, cid, _rank = P._scaled_entries([parts], unit, zero)  # the path's order
         k = out[f"g{g}_wire_entries"] = len(r_idx)
         if k:
             flat = tuple(torch.cat([src[c][:m] for src in srcs]) for c in range(3))
             wpts = rows(flat, torch.from_numpy(r_idx).to("cuda"))
             sel = torch.from_numpy(path_sample(rng, k, PATH_SAMPLE)).to("cuda")
             ladder_job(f"scalar_mul_g{g}[{k} lanes, layer one's wire entries, {len(sel)} "
-                       "sampled]", wpts, torch.from_numpy(mag[cid]).to("cuda"), sel, mag,
-                       np.bincount(cid, minlength=len(mag)))
+                       "sampled]", wpts, torch.from_numpy(mag[cid]).to("cuda"), sel)
             del flat
         else:  # then the path launches no such K1 either
             log(f"ladders G{g}: layer one has no wire entry to scale")
         # one plain ladder call for every check of the group
         lanes = [len(jb[3]) for jb in jobs]
         p_all = tuple(torch.cat([jb[2][c] for jb in jobs]) for c in range(3))
-        want_all, plain_ms = once_ms(torch, lambda: scalar_mul_plain(
-            curve, p_all, torch.cat([jb[3] for jb in jobs]), 254))
+        want_all, plain_ms = once_ms(torch, lambda: ladder_plain(
+            curve, p_all, torch.cat([jb[3] for jb in jobs])))
         off = 0
-        for (name, got, _p, _sc, u, kern, work, reps), k in zip(jobs, lanes):
+        for (name, got, _p, _dig, u, kern, work, reps), k in zip(jobs, lanes):
             want = tuple(t[off : off + k] for t in want_all)
             off += k
             if u is not None:
@@ -2250,11 +2283,131 @@ def setup_profile_main(root: str) -> int:
     return 0
 
 
+def ceremony_profile_main(root: str) -> int:
+    """`--ceremony-profile ROOT`: on the zkpoa_tpu_torch package under ROOT,
+    a power-21 dev ceremony, then layer one's phase-1 key from it
+    (`setup_from_ptau`, its split), then each stage of the three G1 and the
+    G2 transforms once (CUDA events a stage), then K2's top stage over 3 x
+    2^21 G1 and 2^21 G2 points and K1's 1/m scales and wire entries, each
+    launched as
+    that package's path launches it (its twiddle form, its scalar form, its
+    entry order), by CUDA events over 2 launches after one; the bounds by
+    this script's rule (`ladder_products`). One JSON line: an A/B of the
+    ceremony's kernels and setup on one card."""
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "zkpoa_tpu_torch", "csrc")):
+        fail(f"no zkpoa_tpu_torch package under {root}")
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.fields.bn254 import R
+    from zkpoa_tpu_torch.ops import curve as C
+    from zkpoa_tpu_torch.ops import group_ntt as G
+    from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+    from zkpoa_tpu_torch.ops.limbs import BN254_FR
+    from zkpoa_tpu_torch.ops.ntt import _bitrev, _twiddles
+    from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
+    from zkpoa_tpu_torch.prover import __main__ as cli
+    from zkpoa_tpu_torch.prover import ptau as P
+
+    if not _build.__file__.startswith(root + os.sep):
+        fail(f"zkpoa_tpu_torch came from {_build.__file__}, not from {root}")
+    windowed = hasattr(C, "booth_digits")  # this PR's K1 / K2, else the binary ladder's
+    _build.lib()
+    circuit, _name = cli._build_circuit("one", layer_one_input(parse_signatures_file(SIGS)), False)
+    r1cs, _witness = circuit.compile()
+    log_m = CEREMONY_POWER
+    m = 1 << log_m
+    path = os.path.join(OUT_DIR, f"profile_{os.getpid()}.ptau")
+    out = {"root": root, "windowed": windowed}
+    try:
+        P.write_dev_ptau(path, log_m, seed=CEREMONY_SEED, device="cuda")
+        times = {}
+        t0 = time.perf_counter()
+        P.setup_from_ptau(r1cs, path, "cuda", times=times)
+        torch.cuda.synchronize()
+        out["setup_s"], out["split"] = time.perf_counter() - t0, times
+        log(f"ceremony profile ({root}): layer one's phase-1 key {out['setup_s']:.2f} s; "
+            f"{P.setup_split(times)}")
+        pt = P.read_ptau(path, "cuda", m)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    packed = r1cs.pack()
+    mag, _neg, unit, zero = P._pool_split(packed.pool_limbs)
+    rev = _bitrev(log_m, "cuda")
+    table = BN254_FR.from_mont(_twiddles(log_m, True, "cuda"))
+    top = table[:: m >> log_m]
+    minv = torch.from_numpy(BN254_FR.to_limbs([pow(m, -1, R)])).to("cuda")
+    groups = ((C.BN254_G1, ("tau_g1", "alpha_tau_g1", "beta_tau_g1"),
+               [(0, packed.a), (0, packed.b), (2 * m, packed.a), (m, packed.b), (0, packed.c)]),
+              (BN254_G2, ("tau_g2",), [(0, packed.b)]))
+    kern, stages = {}, {}
+    for curve, names, parts in groups:
+        g = curve.group
+        srcs = [P._jac(curve, pt[k]) for k in names]
+        pts = tuple(torch.cat([src[c][:m][rev] for src in srcs]).contiguous() for c in range(3))
+        n = pts[0].shape[0]
+        # every stage of the transform once, as lagrange_points runs it
+        work = tuple(t.clone() for t in pts)
+        dig = C.booth_digits(table) if windowed else table
+        stages[f"g{g}"] = [once_ms(torch, lambda: G.stage(
+            curve, work, dig[:: m >> (k + 1)] if windowed else dig[:: m >> (k + 1)].contiguous(),
+            k))[1] for k in range(log_m)]
+        del work, dig
+        log(f"ceremony profile ({root}): G{g} stages, half 2^0 .. 2^{log_m - 1}, ms: "
+            + ", ".join(f"{v:.1f}" for v in stages[f"g{g}"]))
+        tw = C.booth_digits(top) if windowed else top.contiguous()
+        work = tuple(t.clone() for t in pts)
+        ms = time_ms(torch, lambda: G.stage(curve, work, tw, log_m - 1), 2)
+        prods = ladder_products(torch, top, g, np.full(m // 2, n // m, np.int64))
+        kern[f"k2_top_g{g}"] = (ms, bound(n * 6 * COORD_BYTES[g],
+                                          (prods + n * PRODUCTS["add"][g]) * MONT_OPS)[0])
+        del work
+        sc = minv if windowed else minv.expand(n, 8).contiguous()
+        ms = time_ms(torch, lambda: C.scalar_mul_batch(curve, pts, sc, 254), 2)
+        kern[f"k1_minv_g{g}"] = (ms, bound(n * 6 * COORD_BYTES[g],
+                                           ladder_products(torch, minv, g, [n]) * MONT_OPS)[0])
+        if windowed:  # the path's entry order
+            r_idx, cid, _rank = P._scaled_entries([parts], unit, zero)
+        else:  # the parent's: R1CS order
+            rows, cids = [], []
+            for off, mat in parts:
+                keep = ~zero[mat.cid] & ~unit[mat.cid]
+                rows.append(off + mat.idx[keep].astype(np.int64))
+                cids.append(mat.cid[keep])
+            r_idx, cid = np.concatenate(rows), np.concatenate(cids)
+        flat = tuple(torch.cat([src[c][:m] for src in srcs]) for c in range(3))
+        wpts = tuple(t[torch.from_numpy(r_idx).to("cuda")].contiguous() for t in flat)
+        wsc = torch.from_numpy(mag[cid]).to("cuda")
+        ms = time_ms(torch, lambda: C.scalar_mul_batch(curve, wpts, wsc, 254), 2)
+        kern[f"k1_wires_g{g}"] = (ms, bound(len(cid) * (6 * COORD_BYTES[g] + 32),
+                                            ladder_products(torch, wsc, g) * MONT_OPS)[0])
+        del pts, flat, wpts, srcs
+        torch.cuda.empty_cache()
+    for k, (ms, b) in kern.items():
+        log(f"ceremony profile ({root}): {k} {ms:.3f} ms, bound {b:.3f} ms, share {b / ms:.1%}")
+    out["kernels_ms_bound_ms"] = kern
+    out["stage_ms"] = stages
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"smi": smi, **out}), flush=True)
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--setup-profile":
         return setup_profile_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--gather-profile":
         return gather_profile_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--ceremony-profile":
+        return ceremony_profile_main(sys.argv[2])
     if not os.path.isdir(os.path.join(REPO, "zkpoa_tpu_torch", "csrc")):
         fail("the zkpoa_tpu_torch package is not beside this script")
     try:
@@ -2283,7 +2436,7 @@ def main() -> int:
     with open(_build.BUILD_INFO["log"]) as f, open(os.path.join(OUT_DIR, "ptxas.log"), "w") as g:
         g.write(f.read())
     msm_regs = ptxas_msm_kernels(_build.BUILD_INFO["log"])
-    log("ptxas MSM, fold, NTT and row-accumulation kernels: " + "; ".join(
+    log("ptxas MSM, fold, NTT, row-accumulation and ladder kernels: " + "; ".join(
         f"{k} {v.get('registers')} registers, stack frame {v.get('stack_frame')} B, spill "
         f"stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B"
         for k, v in sorted(msm_regs.items())))

@@ -856,9 +856,23 @@ def test_fixed_base_kernel_on_sparse_and_ragged_scalars(card, curve, n):
         mul(base, scal[i]) if scal[i] else None for i in pick]
 
 
+def _wrapping_scalar(sign):
+    """A scalar below 2^254 whose last window add meets P == Q (sign 1) or
+    P == -Q (sign -1): k = a 2^w + d, a 2^w = sign d mod r (as in
+    tests/test_torch_scalar_mul.py)."""
+    w = FK.LADDER_W
+    inv, h = pow(1 << w, -1, bn254.R), 1 << (w - 1)
+    for d in [*range(1, h + 1), *range(-h, 0)]:
+        a = sign * d * inv % bn254.R
+        if a < (1 << (254 - w)) - 1:
+            return (a << w) + d
+    raise AssertionError("no wrapping scalar below 2^254")
+
+
 def _ladder_inputs(curve, n, seed, card):
     """Points P_i = [g_i] G (Jacobian from B8, z not 1), one at infinity,
-    and scalars 0, 1, 2, r - 1, 2^64 - 1, then random 254-bit ones."""
+    and scalars 0, 1, 2, r - 1, 2^64 - 1, 2^254 - 1, two that wrap mod r
+    in the last window (P == Q, P == -Q), then random 254-bit ones."""
     base, add, mul = _group(curve)
     rng = np.random.default_rng(seed)
     g = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
@@ -867,28 +881,35 @@ def _ladder_inputs(curve, n, seed, card):
     p = tuple(t.contiguous() for t in p)
     if n > 5:
         p[2][5] = 0  # P_5 at infinity (its x and y stay as they were)
-    ks = [0, 1, 2, bn254.R - 1, (1 << 64) - 1] + [
-        int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n - 5)]
+    ks = [0, 1, 2, bn254.R - 1, (1 << 64) - 1, (1 << 254) - 1, _wrapping_scalar(1),
+          _wrapping_scalar(-1)] + [int.from_bytes(rng.bytes(32), "big") % bn254.R
+                                   for _ in range(n - 8)]
     ks = ks[:n]
     return g, p, ks, torch.from_numpy(host.scalars_to_limbs_fast(ks)).to(card)
 
 
+@pytest.mark.parametrize("form", ["lanes", "one"])
 @pytest.mark.parametrize("n", [1, 1003, 1 << 14])
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
-def test_scalar_mul_kernel_matches_plain_and_host(card, curve, n):
+def test_scalar_mul_kernel_matches_plain_and_host(card, curve, n, form):
     """K1: one launch, limbs equal to the plain ladder, decoded points
-    equal to host multiples."""
+    equal to host multiples; a scalar a lane, or one scalar [8] for every
+    lane (the 1/m scale's and a contribution's form). G2 runs on the
+    `G2Tri` triple layout (three threads a lane) at every lane count."""
     from zkpoa_tpu_torch.ops.curve import scalar_mul_batch, scalar_mul_plain
 
     base, _add, mul = _group(curve)
     g, p, ks, sc = _ladder_inputs(curve, n, 11 + n, card)
+    if form == "one":
+        ks = [_wrapping_scalar(1)] * n
+        sc = torch.from_numpy(host.scalars_to_limbs_fast(ks[:1])[0]).to(card)
     _build.reset_counts()
     got = scalar_mul_batch(curve, p, sc, 254)
     torch.cuda.synchronize()
     assert _build.COUNTS == {f"scalar_mul_g{curve.group}": 1}
     for a, b in zip(got, scalar_mul_plain(curve, p, sc, 254)):
         assert torch.equal(a, b)
-    pick = sorted({0, n // 2, n - 1} | ({3, 4, 5} if n > 5 else set()))
+    pick = sorted({0, n // 2, n - 1} | ({3, 4, 5, 6, 7} if n > 7 else set()))
     want = [None if (i == 5 and n > 5) else mul(base, g[i] * ks[i] % bn254.R) for i in pick]
     assert curve.decode_jac(tuple(t[pick] for t in got)) == want
 
@@ -896,16 +917,19 @@ def test_scalar_mul_kernel_matches_plain_and_host(card, curve, n):
 @pytest.mark.parametrize("log_half", [0, 1, 5, 9])
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
 def test_group_ntt_stage_kernel_matches_plain(card, curve, log_half):
-    """K2 on 1024 points (in place, one launch) against the plain stage;
+    """K2 on 1024 points (in place, one launch) against the plain stage:
+    512 / half blocks, from 512 (every twiddle 1) to one (the top stage);
     the twiddle table starts with 1, as every stage's does."""
+    from zkpoa_tpu_torch.ops.curve import booth_digits
     from zkpoa_tpu_torch.ops.group_ntt import stage, stage_plain
 
     _g, p, _ks, sc = _ladder_inputs(curve, 1024, 21 + log_half, card)
     tw = sc[: 1 << log_half].clone()
     tw[0] = torch.tensor(host.scalars_to_limbs_fast([1])[0], device=card)
-    want = stage_plain(curve, p, tw, log_half)
+    digits = booth_digits(tw)
+    want = stage_plain(curve, p, digits, log_half)
     _build.reset_counts()
-    got = stage(curve, tuple(t.clone() for t in p), tw, log_half)
+    got = stage(curve, tuple(t.clone() for t in p), digits, log_half)
     torch.cuda.synchronize()
     assert _build.COUNTS == {f"group_ntt_stage_g{curve.group}": 1}
     for a, b in zip(got, want):
@@ -947,15 +971,28 @@ def test_ceremony_setup_on_card_equals_cpu(card, tmp_path):
 
 
 def test_ladder_launchers_refuse_what_they_cannot_take(card):
+    from zkpoa_tpu_torch.ops.curve import booth_digits
+
     _g, p, _ks, sc = _ladder_inputs(BN254_G1, 8, 5, card)
     with pytest.raises(ValueError):
         FK.scalar_mul(FK.G1, p, sc[:7], 254)  # one scalar short
     with pytest.raises(ValueError):
+        FK.scalar_mul(FK.G1, p, sc[:2], 254)  # neither a scalar a lane nor one
+    with pytest.raises(ValueError):
+        FK.scalar_mul(FK.G1, p, sc[:1].reshape(1, 1, 8), 254)  # one scalar, but [1, 1, 8]
+    with pytest.raises(ValueError):
         FK.scalar_mul(FK.G1, p, sc, 0)
     with pytest.raises(ValueError):
-        FK.group_ntt_stage(FK.G1, p, sc[:3], 1)  # tw must be [half, 8]
+        FK.group_ntt_stage(FK.G1, p, booth_digits(sc[:3]), 1)  # digits must be [half, nd]
     with pytest.raises(ValueError):
-        FK.group_ntt_stage(FK.G1, tuple(t[:6] for t in p), sc[:4], 2)  # 2 half does not divide
+        FK.group_ntt_stage(FK.G1, p, sc[:2], 1)  # twiddle limbs, not digits
+    with pytest.raises(ValueError):
+        FK.group_ntt_stage(FK.G1, p, booth_digits(sc[:2], 254, FK.LADDER_W + 1), 1)  # other w
+    with pytest.raises(ValueError):
+        FK.group_ntt_stage(FK.G1, tuple(t[:6] for t in p), booth_digits(sc[:4]),
+                           2)  # 2 half does not divide
     with pytest.raises(ValueError):
         FK.scalar_mul(FK.G1, tuple(t.reshape(-1)[1:57].reshape(7, 8) for t in p),
                       sc[:7], 254)  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        FK.scalar_mul(FK.G1, p, sc.reshape(-1)[1:9], 254)  # one scalar, not 16-byte aligned

@@ -2,8 +2,10 @@
 `lagrange_points`, through `prover/ptau.py` `lagrange_g1` /
 `_lagrange_g2`) on the CPU, where its kernels run as their plain versions:
 the Lagrange points of a dev ceremony at m in {2, 4, 8}, G1 and G2, equal
-the host L_i(tau) G, and `lagrange_g1` at m = 4 equals the JAX package's
-(several sources in one call, as `setup_from_ptau` runs them, are held by
+the host L_i(tau) G, and `lagrange_g1` at m = 4 and 8 equals the JAX
+package's (the port's stages run K2's signed-window ladder on twiddle
+digits recoded once a domain, the JAX package's a binary ladder; several
+sources in one call, as `setup_from_ptau` runs them, are held by
 the ceremony keys' parity in tests/test_torch_ptau.py). Tolerance: exact
 (decoded points)."""
 
@@ -49,7 +51,7 @@ def test_lagrange_points_equal_host_lagrange_at_tau(ceremony, group, m):
     if group == "g1":
         got = BN254_G1.decode_jac(P.lagrange_g1(pt["tau_g1"], m))
         want = [bn254.g1_mul(bn254.G1_GEN, x) for x in lag]
-        if m == 4:
+        if m in (4, 8):
             from zkpoa_tpu.prover import ptau as JP
 
             assert got == JP.lagrange_g1(JP.read_ptau(path)["tau_g1"], m)

@@ -74,10 +74,10 @@ SIGNATURES = {
     "zk_gather_rows": [_P, _P, _L, _I, _L, _P, _P],
     "zk_gather_vec": [_P, _P, _L, _I, _L, _P, _P],
     "zk_gather_async": [_P, _P, _L, _I, _L, _P, _P],
-    # scalar_mul.cu: (group, px, py, pz, scalars, n_bits, n, ox, oy, oz, stream) and
-    # (group, x, y, z, tw, log_half, n_bfly, stream)
-    "zk_scalar_mul": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
-    "zk_group_ntt_stage": [_I, _P, _P, _P, _P, _I, _L, _P],
+    # scalar_mul.cu: (group, px, py, pz, scalars, stride, n_bits, n, ox, oy, oz, stream) and
+    # (group, x, y, z, digits, dstride, nd, log_half, n_bfly, stream)
+    "zk_scalar_mul": [_I, _P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P],
+    "zk_group_ntt_stage": [_I, _P, _P, _P, _P, _L, _I, _I, _L, _P],
 }
 
 

@@ -97,6 +97,8 @@ struct G2Tri {
     return fe_sub<FQ>(x, y);
   }
   __device__ __forceinline__ static T sqr(const T& a) { return mul(a, a); }
+  // componentwise: -(c0 + c1) = (-c0) + (-c1)
+  __device__ __forceinline__ static T neg(const T& a) { return fe_sub<FQ>(fe_zero(), a); }
   __device__ __forceinline__ static bool is_zero(const T& a) {
     const unsigned b = __ballot_sync(mask(), fe_is_zero(a));
     return ((b >> first()) & 3u) == 3u;  // c0 == 0 and c1 == 0

@@ -214,30 +214,80 @@ class CurveOps(_CurveBase):
         return out
 
 
-def scalar_mul_plain(ops, p: Jac, scalars: torch.Tensor, n_bits: int = 254) -> Jac:
-    """Plain version of K1 (port of `curve_jax.py:264` `scalar_mul_batch`):
-    MSB-first double-then-add over bits n_bits - 1 .. 0 of the plain-limb
-    scalars [N, 8], every lane doubling each step and taking the add where
-    its bit is set, by the plain formulas in int64. Bits above the highest
-    one any lane sets leave the all-zero accumulator as it is, and a step
-    whose bit no lane sets adds nothing, so both are skipped."""
-    ar = ops.arith(scalars.device)
-    sc = L.u32(scalars)
+def booth_digits(scalars: torch.Tensor, n_bits: int = 254, w: int = FK.LADDER_W) -> torch.Tensor:
+    """Signed window digits of plain-limb scalars [..., 8] (bits at or above
+    n_bits read as 0): int8 [N, n_bits // w + 1], digit i = bits i w .. i w
+    + w - 2, plus bit i w - 1, minus 2^(w-1) times bit i w + w - 1 (Booth
+    recoding), so sum_i d_i 2^(w i) = k and |d_i| <= 2^(w-1). As
+    csrc/scalar_mul.cu `scalar_digit`; K2 takes its twiddles this way."""
+    sc = L.u32(scalars.reshape(-1, 8))
+    for j in range(8):  # clear bits at or above n_bits
+        keep = min(max(n_bits - 32 * j, 0), 32)
+        if keep < 32:
+            sc[:, j] &= (1 << keep) - 1
+    sc = torch.cat([sc, torch.zeros_like(sc[:, :1])], dim=1)  # a zero word above
+    nd, h, mask = n_bits // w + 1, 1 << (w - 1), (2 << w) - 1
+    out = torch.empty((sc.shape[0], nd), dtype=torch.int8, device=sc.device)
+    for i in range(nd):
+        pos = i * w - 1  # the bit below the window: the borrow
+        if pos < 0:
+            v = (sc[:, 0] << 1) & mask
+        else:
+            word, sh = divmod(pos, 32)
+            v = ((sc[:, word] | (sc[:, word + 1] << 32)) >> sh) & mask
+        out[:, i] = ((v >> 1) & (h - 1)) + (v & 1) - (v >> w) * h
+    return out
+
+
+def ladder_plain(ops, p: Jac, digits: torch.Tensor) -> Jac:
+    """Plain version of K1's signed-window ladder: [k_i] P_i for Jacobian
+    points [N] and the digits of k_i (`booth_digits`, [N, nd], or [1, nd]
+    for every lane), by the plain formulas in int64, in the kernel's order:
+    the multiples e P (2e P = dbl(e P), (2e+1) P = 2e P + P), then from the
+    top digit any lane needs, w doublings and, where the lane's digit d is
+    not 0, acc + (+-(|d| P)). Lanes still at the all-zero infinity double to
+    it again, so where the kernel's warps start does not change a limb."""
+    w = FK.LADDER_W
+    ar = ops.arith(p[0].device)
     pt = tuple(L.u32(t) for t in p)
+    n = pt[0].shape[0]
+    dig = digits.to(torch.int64).expand(n, digits.shape[1])
+    nz = (dig != 0).any(0)
     acc = tuple(torch.zeros_like(t) for t in pt)
-    bits = [((sc[:, b // 32] >> (b % 32)) & 1).bool() for b in range(n_bits)]
-    top = max((b for b in range(n_bits) if bool(bits[b].any())), default=-1)
-    for b in range(top, -1, -1):
-        acc = jac_double(ar, acc)
-        if bool(bits[b].any()):
-            acc = _sel3(ar, bits[b], jac_add(ar, acc, pt), acc)
+    if not bool(nz.any()):
+        return tuple(L.to_i32(t) for t in acc)
+    top = int(nz.nonzero().max())
+    tab = [pt]
+    for e in range(2, (1 << (w - 1)) + 1):
+        tab.append(jac_add(ar, tab[e - 2], pt) if e & 1 else jac_double(ar, tab[e // 2 - 1]))
+    tab = tuple(torch.stack([t[c] for t in tab]) for c in range(3))  # [2^(w-1), N, ...]
+    lane = torch.arange(n, device=dig.device)
+    for i in range(top, -1, -1):
+        if i != top:
+            for _ in range(w):
+                acc = jac_double(ar, acc)
+        d = dig[:, i]
+        if not bool((d != 0).any()):
+            continue
+        idx = d.abs().clamp(min=1) - 1
+        x, y, z = (t[idx, lane] for t in tab)
+        y = ar.select(d < 0, ar.sub(ar.zeros_like(y), y), y)
+        acc = _sel3(ar, d != 0, jac_add(ar, acc, (x, y, z)), acc)
     return tuple(L.to_i32(t) for t in acc)
+
+
+def scalar_mul_plain(ops, p: Jac, scalars: torch.Tensor, n_bits: int = 254) -> Jac:
+    """Plain version of K1 (the group element of `curve_jax.py:264`
+    `scalar_mul_batch`, by the kernel's signed window): plain-limb scalars
+    [N, 8], or one [8] / [1, 8] for every lane."""
+    return ladder_plain(ops, p, booth_digits(scalars, n_bits))
 
 
 def scalar_mul_batch(ops, p: Jac, scalars: torch.Tensor, n_bits: int = 254) -> Jac:
     """[k_i] P_i for Jacobian points [N] (G1 or G2, by `ops`) and plain-limb
-    scalars [N, 8]. CUDA tensors launch kernel K1 (csrc/scalar_mul.cu, one
-    launch); CPU tensors take the plain version."""
+    scalars [N, 8], or [k] P_i for one scalar [8] / [1, 8]. CUDA tensors
+    launch kernel K1 (csrc/scalar_mul.cu, one launch); CPU tensors take
+    the plain version."""
     if scalars.is_cuda:
         return FK.scalar_mul(ops.group, p, scalars, n_bits)
     return scalar_mul_plain(ops, p, scalars, n_bits)

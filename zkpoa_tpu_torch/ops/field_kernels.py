@@ -6,7 +6,7 @@ and, unlike the TPU package, for G2 too; and of B8, fixed-base
 multiplication (`zkpoa_tpu/ops/curve_jax.py:369`, csrc/fixed_base.cu); and
 of the variable-base ladder K1 (`curve_jax.py:264` `scalar_mul_batch`) and
 the group-NTT butterfly stage K2 (`prover/ptau.py:190-217`),
-csrc/scalar_mul.cu.
+csrc/scalar_mul.cu: a signed-window ladder of LADDER_W bits.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, launches on the current stream, raises if the
@@ -191,14 +191,22 @@ def _aligned(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: must be 16-byte aligned (the kernels load 16 B at a time)")
 
 
+# Bits of K1's and K2's signed window (csrc/scalar_mul.cu LW): the twiddle
+# digits and the plain twins use it too.
+LADDER_W = 4
+TWIDDLE_DIGITS = 254 // LADDER_W + 1  # digits of a 254-bit twiddle
+
+
 def scalar_mul(group: int, p: Jac, scalars: torch.Tensor, n_bits: int) -> Jac:
-    """[k_i] P_i for Jacobian points [N] and plain-limb scalars [N, 8],
-    MSB first over n_bits bits, one thread a lane (kernel K1)."""
+    """[k_i] P_i for Jacobian points [N] and plain-limb scalars [N, 8], or
+    [k] P_i for one scalar [8] / [1, 8] given to every lane (kernel K1: the
+    signed window of LADDER_W bits)."""
     _check(scalars, "scalars")
     batch = _batch(group, p[0])
-    if len(batch) != 1 or tuple(scalars.shape) != batch + (8,):
-        raise ValueError(f"scalars: expected [{batch[0] if batch else 'N'}, 8] beside points "
-                         f"[N], got {tuple(scalars.shape)} and batch {batch}")
+    one = tuple(scalars.shape) in ((8,), (1, 8))
+    if len(batch) != 1 or not (one or tuple(scalars.shape) == batch + (8,)):
+        raise ValueError(f"scalars: expected [{batch[0] if batch else 'N'}, 8] or one [8] "
+                         f"beside points [N], got {tuple(scalars.shape)} and batch {batch}")
     if not 0 < n_bits <= 256:
         raise ValueError(f"n_bits {n_bits} outside 1..256")
     args = _prep(group, list(p), batch) + [scalars.contiguous()]
@@ -207,32 +215,40 @@ def scalar_mul(group: int, p: Jac, scalars: torch.Tensor, n_bits: int) -> Jac:
     out = _empty3(group, batch, scalars.device)
     _build.launch(
         "zk_scalar_mul", f"scalar_mul_g{group}", group,
-        *[t.data_ptr() for t in args], n_bits, batch[0], *[t.data_ptr() for t in out],
+        *[t.data_ptr() for t in args], 0 if one else 8, n_bits, batch[0],
+        *[t.data_ptr() for t in out],
     )
     return out
 
 
-def group_ntt_stage(group: int, p: Jac, tw: torch.Tensor, log_half: int) -> Jac:
+def group_ntt_stage(group: int, p: Jac, digits: torch.Tensor, log_half: int) -> Jac:
     """One butterfly stage of the group NTT over Jacobian points [m], IN
     PLACE: for every pair (u, v) = (i, i + half) of each block of 2 half,
     v' = [tw[i mod half]] v, then u <- u + v', v <- u - v' (kernel K2).
-    tw: plain twiddle limbs [half, 8]. Returns p."""
-    _check(tw, "tw")
+    digits: the twiddles' signed window digits (`curve.booth_digits`),
+    int8 [half, TWIDDLE_DIGITS] (a
+    row stride of its own is fine: a stage reads every k-th row of its
+    domain's table). Returns p."""
+    if not digits.is_cuda:
+        raise ValueError("digits: kernel input must be a CUDA tensor")
     batch = _batch(group, p[0])
     half = 1 << log_half
-    if len(batch) != 1 or batch[0] % (2 * half) or tuple(tw.shape) != (half, 8):
-        raise ValueError(f"points [m] with 2 half | m and tw [half, 8] expected, got batch "
-                         f"{batch}, half {half}, tw {tuple(tw.shape)}")
+    nd = TWIDDLE_DIGITS
+    if (digits.dtype != torch.int8 or tuple(digits.shape) != (half, nd)
+            or digits.stride(1) != 1):
+        raise ValueError(f"digits: expected int8 [half = {half}, {nd}] with unit column "
+                         f"stride, got {digits.dtype} {tuple(digits.shape)}")
+    if len(batch) != 1 or batch[0] % (2 * half):
+        raise ValueError(f"points [m] with 2 half | m expected, got batch {batch}, half {half}")
     for i, t in enumerate(p):
         _check(t, f"coordinate {i}")
         if tuple(t.shape) != batch + WIDTH[group] or not t.is_contiguous():
             raise ValueError(f"coordinate {i}: must be contiguous {batch + WIDTH[group]} "
                              "(the stage writes in place)")
-    tw = tw.contiguous()
-    for i, t in enumerate(list(p) + [tw]):
-        _aligned(t, f"operand {i}")
+        _aligned(t, f"coordinate {i}")
     _build.launch(
         "zk_group_ntt_stage", f"group_ntt_stage_g{group}", group,
-        *[t.data_ptr() for t in p], tw.data_ptr(), log_half, batch[0] // 2,
+        *[t.data_ptr() for t in p], digits.data_ptr(), max(digits.stride(0), nd), nd, log_half,
+        batch[0] // 2,
     )
     return p

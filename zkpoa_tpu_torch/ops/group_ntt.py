@@ -11,12 +11,13 @@ served only dev-scale domains). Here G1 and G2 share one path:
 the inverse-DFT matrix applied to the points [tau^0 G, ..., tau^(m-1) G]
 of the ceremony: a bit-reverse gather, log2 m decimation-in-time stages
 u +- w^j v, then a scale by 1/m. Each stage is one launch of kernel K2
-(csrc/scalar_mul.cu: a butterfly a thread, the twiddle ladder and both
-adds in registers, in place) for CUDA tensors, and `stage_plain` (K1's
-plain ladder and the plain adds) for CPU tensors; the scale is K1. The
-twiddles w^{-j} for j < m/2 are made once per domain on the device
-(`ntt._twiddles`, the field NTT's table) and each stage reads every
-(m / 2 half)-th of them.
+(csrc/scalar_mul.cu: a butterfly a lane, the twiddle's signed-window
+ladder and both adds in registers, in place; a warp takes 32 consecutive
+twiddles) for CUDA tensors, and `stage_plain` (K1's plain ladder and the
+plain adds) for CPU tensors; the scale is K1 with one scalar for every
+lane. The twiddles w^{-j} for j < m/2 are made once per domain on the
+device (`ntt._twiddles`, the field NTT's table) and recoded into window
+digits once (`booth_digits`); each stage reads every (m / 2 half)-th row.
 """
 
 from __future__ import annotations
@@ -28,23 +29,23 @@ import torch
 from ..fields.bn254 import R
 from . import field_kernels as FK
 from . import limbs as L
-from .curve import Jac, jac_add, scalar_mul_batch, scalar_mul_plain
+from .curve import Jac, booth_digits, jac_add, ladder_plain, scalar_mul_batch
 from .limbs import BN254_FR
 from .ntt import _bitrev, _twiddles
 
 
-def stage_plain(ops, p: Jac, tw: torch.Tensor, log_half: int) -> Jac:
+def stage_plain(ops, p: Jac, digits: torch.Tensor, log_half: int) -> Jac:
     """Plain version of K2: for each pair (u, v) = (i, i + half) of every
-    block of 2 half, v' = [tw[i mod half]] v by K1's plain ladder, then
-    (u + v', u - v') by the plain unified add, -v' negating y. Returns
-    new tensors."""
+    block of 2 half, v' = [tw[i mod half]] v by K1's plain ladder on the
+    twiddle's digits (`booth_digits`, [half, nd]), then (u + v', u - v') by
+    the plain unified add, -v' negating y. Returns new tensors."""
     half = 1 << log_half
     m = p[0].shape[0]
     cs = ops.coord_shape
     blocks = tuple(t.reshape((m // (2 * half), 2, half) + cs) for t in p)
     u = tuple(t[:, 0].reshape((m // 2,) + cs) for t in blocks)
     v = tuple(t[:, 1].reshape((m // 2,) + cs) for t in blocks)
-    vt = scalar_mul_plain(ops, v, tw.repeat(m // (2 * half), 1), 254)
+    vt = ladder_plain(ops, v, digits.repeat(m // (2 * half), 1))
     lo, hi = butterfly_plain(ops, u, vt)
     shape = (m // (2 * half), 1, half) + cs
     return tuple(
@@ -62,12 +63,13 @@ def butterfly_plain(ops, u: Jac, vt: Jac):
     return tuple(L.to_i32(t) for t in lo), tuple(L.to_i32(t) for t in hi)
 
 
-def stage(ops, p: Jac, tw: torch.Tensor, log_half: int) -> Jac:
-    """One butterfly stage: kernel K2 in place for CUDA points (returns
-    them), the plain version for CPU points."""
+def stage(ops, p: Jac, digits: torch.Tensor, log_half: int) -> Jac:
+    """One butterfly stage on the twiddles' window digits [half, nd]:
+    kernel K2 in place for CUDA points (returns them), the plain version
+    for CPU points."""
     if p[0].is_cuda:
-        return FK.group_ntt_stage(ops.group, p, tw, log_half)
-    return stage_plain(ops, p, tw, log_half)
+        return FK.group_ntt_stage(ops.group, p, digits, log_half)
+    return stage_plain(ops, p, digits, log_half)
 
 
 def lagrange_points(ops, sources: Sequence[Jac], m: int) -> List[Jac]:
@@ -85,10 +87,10 @@ def lagrange_points(ops, sources: Sequence[Jac], m: int) -> List[Jac]:
     rev = _bitrev(log_m, device)
     cur = tuple(torch.cat([src[k][:m][rev] for src in sources]) for k in range(3))
     if log_m:
-        table = BN254_FR.from_mont(_twiddles(log_m, True, device))  # w^-j, j < m/2
+        # w^-j, j < m/2, recoded once for every stage
+        digits = booth_digits(BN254_FR.from_mont(_twiddles(log_m, True, device)))
         for s in range(log_m):
-            half = 1 << s
-            cur = stage(ops, cur, table[:: m // (2 * half)].contiguous(), s)
-    m_inv = torch.from_numpy(BN254_FR.to_limbs([pow(m, -1, R)])).to(device)
-    out = scalar_mul_batch(ops, cur, m_inv.expand(cur[0].shape[0], 8).contiguous(), 254)
+            cur = stage(ops, cur, digits[:: m >> (s + 1)], s)
+    m_inv = torch.from_numpy(BN254_FR.to_limbs([pow(m, -1, R)])).to(device)  # one scalar [1, 8]
+    out = scalar_mul_batch(ops, cur, m_inv, 254)
     return [tuple(t[k * m : (k + 1) * m] for t in out) for k in range(len(sources))]

@@ -218,6 +218,25 @@ def _pool_split(pool_limbs: np.ndarray):
             np.array([v == 0 for v in mags], dtype=bool))
 
 
+def _scaled_entries(sums, unit: np.ndarray, zero: np.ndarray):
+    """The entries of `sums` (as in `_wire_points`) that K1 scales, those of
+    a coefficient other than 0 and +-1, in the order K1 takes them: by
+    coefficient id (stable), so that the lanes of a warp mostly share one
+    scalar. Returns their table rows and coefficient ids in that order, and
+    rank[s] = the launch position of the s-th such entry in entry order."""
+    rows, cids = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for entries in sums:
+        for off, mat in entries:
+            keep = ~zero[mat.cid] & ~unit[mat.cid]
+            rows.append(off + mat.idx[keep].astype(np.int64))
+            cids.append(mat.cid[keep].astype(np.int64))
+    cid = np.concatenate(cids)
+    order = np.argsort(cid, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return np.concatenate(rows)[order], cid[order], rank
+
+
 def _wire_points(ops, table: DeviceG1Points, sums, pool_limbs: np.ndarray, n_wires: int,
                  times=None) -> List:
     """out[wire] = sum coeff * table[row] for each of `sums`, a list of
@@ -225,34 +244,33 @@ def _wire_points(ops, table: DeviceG1Points, sums, pool_limbs: np.ndarray, n_wir
     pool[cid] * table[offset + i] to `wire` (port of `ptau.py:228`
     `_wire_points`, every sum at once). Entries of coefficient +-1 add the
     table row itself; every other entry's point is scaled by its
-    coefficient in one K1 launch for all the sums, converted to affine, and
-    appended to the table. Each sum is then one bucket accumulation (B5 /
+    coefficient in one K1 launch for all the sums (`_scaled_entries`),
+    converted to affine, and appended to the table. Each sum is then one bucket accumulation (B5 /
     B6) whose buckets are the wires; a -1 or a negative coefficient adds
     the negated point through the plan's sign encoding. Returns Jacobian
     sums [n_wires] per entry of `sums`."""
     device = table.xs.device
     mag, neg, unit, zero = _pool_split(pool_limbs)
-    plans = []  # per sum: (row, negative, wire, scaled index or -1) numpy
-    scaled_rows, scaled_cids = [], []
-    n_scaled = 0
+    s_rows, s_cids, rank = _scaled_entries(sums, unit, zero)
+    n_scaled = len(s_rows)
+    plans = []  # per sum: (row, negative, wire, K1 lane or -1) numpy
+    n_seen = 0
     for entries in sums:
         parts = []
         for off, mat in entries:
             keep = ~zero[mat.cid]
             idx, wire, cid = (a[keep].astype(np.int64) for a in (mat.idx, mat.wire, mat.cid))
-            is_unit = unit[cid]
+            scaled = ~unit[cid]
             slot = np.full(idx.shape[0], -1, dtype=np.int64)
-            k = int((~is_unit).sum())
-            slot[~is_unit] = np.arange(n_scaled, n_scaled + k)
-            n_scaled += k
-            scaled_rows.append(off + idx[~is_unit])
-            scaled_cids.append(cid[~is_unit])
+            k = int(scaled.sum())
+            slot[scaled] = rank[n_seen : n_seen + k]
+            n_seen += k
             parts.append((off + idx, neg[cid], wire, slot))
         plans.append([np.concatenate(col) for col in zip(*parts)])
     with _timed(times, "wire points: scale", device):
         if n_scaled:
-            rows = torch.from_numpy(np.concatenate(scaled_rows)).to(device)
-            sc = torch.from_numpy(mag[np.concatenate(scaled_cids)]).to(device)
+            rows = torch.from_numpy(s_rows).to(device)
+            sc = torch.from_numpy(mag[s_cids]).to(device)
             pts = ops.from_affine(table.xs[rows], table.ys[rows], table.valid[rows])
             table = _cat([table, _affine(ops, scalar_mul_batch(ops, pts, sc, 254))])
     n_lag = len(table) - n_scaled
@@ -361,10 +379,11 @@ def beacon(pk: ProvingKey, beacon_hash: str, iterations: int = 10) -> ProvingKey
 
 def _g1_scale_list(tables: Sequence[DeviceG1Points], k: int) -> List[DeviceG1Points]:
     """[k] P for every point of the G1 tables: one K1 launch over their
-    concatenation, one conversion to affine; infinity stays infinity."""
+    concatenation with k given once, one conversion to affine; infinity
+    stays infinity."""
     tab = _cat(list(tables))
     device = tab.xs.device
-    sc = torch.from_numpy(BN254_FR.to_limbs([k])).to(device).expand(len(tab), 8).contiguous()
+    sc = torch.from_numpy(BN254_FR.to_limbs([k])).to(device)  # one scalar [1, 8]
     out = _affine(BN254_G1, scalar_mul_batch(BN254_G1, _jac(BN254_G1, tab), sc, 254))
     parts, off = [], 0
     for t in tables:
