@@ -109,7 +109,7 @@ Phases, each printing a line:
      call time, since a profiler session may leave later launches slower.
      The kernels line carries device_ms and library_device_ms for E1-E3.
      The c = 11 run's whole-MSM stage is
-     the G1 MSM at 2^20 in Mpoints/s. The launch counts of phases 4, 5, 5b, 7 and 10 (each reset
+     the G1 MSM at 2^20 in Mpoints/s. The launch counts of phases 4, 5, 5b, 7, 10 and 11 (each reset
      just before it) must together be non-zero for every kernel of a path;
      B2-B4 run on the path inside heavy_rounds, msm_horner, point_fold and
      scalar_mul, the elementwise G1 point_add_affine on phase 10's h-query,
@@ -148,6 +148,32 @@ Phases, each printing a line:
      ladders of all of a group's checks run in one plain call (its time is
      each check's plain_ms); then the h-query's mixed add (B2) at all
      2^21 - 1 points;
+  11. batch and multi-GPU (run after phase 10; the launch counts of its
+     path join those of phases 4, 5, 5b, 7 and 10), in a one-rank NCCL
+     process group (a file store under build/chip_smoke/, destroyed at the
+     end): first the NTT pass kernel at the batched shapes of these paths
+     against `ntt_passes_plain`, exact, each with its bound (n/2 log n
+     products a transform, and n for an inverse's scale, times the batch):
+     [2, 2^21] forward and inverse (prove_batched's stacked operands),
+     [2^11, 2^10] and [2^10, 2^11] forward and inverse (the four-step's
+     local transforms at 2^21), and the single 2^21 transform re-timed;
+     then the two signatures of build/recursive_run2/sigs.json as two
+     1-signature layer-one witnesses (1,390,452 constraints, 2^21) under
+     one key, proved by sequential `prove` with seeds f"{seed}-b{i}" and,
+     with the counts reset, by `parallel.batch_prove.prove_batched` on a
+     one-rank "batch" mesh: the proofs byte-identical and verified by the
+     host verifier, one NTT pass launch a pass for both witnesses, the
+     wall and peak device memory of both routes; `parallel.ntt_dist
+     .quotient_dist` at 2^21 on a one-rank "data" mesh, equal limbs to
+     `ops.ntt.quotient`, both timed; `parallel.mesh.msm_sharded` over
+     2^20 G1 points and `msm_batch_sharded` over two batches of them on a
+     (1, 1) mesh, each exactly (sum s_i g_i mod r) G; Keccak:
+     `ops.keccak.eth_addresses_batch` of 2^16 random 64-byte public keys on
+     the card equal to the CPU run of the same function, 2^10 of them to
+     the host `eth_address`, and the two recorded signers' addresses (from
+     the port's fixture keys, `write_fixtures(2, extra=11)`'s) found in
+     build/recursive_run2's anonymity set, with its wall and the device
+     time of the batched hash;
   8. Merkle: a tree over 2^20 leaves (height 21) from numpy seed 0, timed,
      4 random leaves and their proofs checked with the host Poseidon;
   9. profile: one more layer-one key under torch.profiler (the setup
@@ -1548,6 +1574,189 @@ def ceremony_path(torch, checks):
     return out, counts
 
 
+def check_ntt_batched(torch, checks, gen) -> dict:
+    """Phase 11's NTT checks: the pass kernel at the batched shapes of
+    prove_batched ([2, 2^21]) and of the four-step's local transforms at
+    2^21 ([2^11, 2^10], [2^10, 2^11]), forward and inverse, against the
+    plain pass schedule on the same inputs; the single 2^21 transform
+    re-timed first. Bound: per transform n/2 log_n products (+ n for an
+    inverse's 1/n) against its input and output, the twiddles once."""
+    from zkpoa_tpu_torch.fields.bn254 import R
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    out = {}
+    for lead, log_n, dirs in (((), 21, (False,)), ((2,), 21, (False, True)),
+                              ((1 << 11,), 10, (False, True)), ((1 << 10,), 11, (False, True))):
+        n = 1 << log_n
+        batch = lead[0] if lead else 1
+        x = rand_field(torch, L.BN254_FR, batch, gen, shape=(n,)).reshape(lead + (n, 8))
+        ninv = L.BN254_FR.encode([pow(n, -1, R)], "cuda")
+        for inverse in dirs:
+            kern = lambda: N.ntt(x, inverse)  # noqa: E731
+            plain = lambda: N.ntt_passes_plain(x, inverse, ninv if inverse else None)  # noqa: E731
+            products = batch * (n // 2 * log_n + (n if inverse else 0))
+            name = f"ntt_pass[{batch} x 2^{log_n} {'inv' if inverse else 'fwd'}, t={N.TILE_LOG}]"
+            checks.record(name, kern(), plain(), kern, plain,
+                          (batch * 2 * 32 * n + 32 * n // 2, products * MONT_OPS), reps=10)
+            out[name] = dict(checks.rows[name], passes=len(N.ntt_passes(log_n, N.TILE_LOG)))
+    return out
+
+
+def batch_multi_gpu(torch, checks, gen):
+    """Phase 11: the batched NTT checks, then (counted) prove_batched,
+    quotient_dist, the sharded MSMs and the batched Keccak in a one-rank
+    NCCL group, each against its one-device or host reference computed
+    outside the counted window."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from zkpoa_tpu_torch import _build, host
+    from zkpoa_tpu_torch.experiments import msm_stages as H
+    from zkpoa_tpu_torch.fields import bn254, secp256k1
+    from zkpoa_tpu_torch.models.layers import LayerOneInput, layer_one_circuit
+    from zkpoa_tpu_torch.ops import keccak as K
+    from zkpoa_tpu_torch.ops import limbs as L
+    from zkpoa_tpu_torch.ops import ntt as N
+    from zkpoa_tpu_torch.ops.curve import BN254_G1
+    from zkpoa_tpu_torch.parallel import mesh as PM
+    from zkpoa_tpu_torch.parallel.batch_prove import prove_batched
+    from zkpoa_tpu_torch.parallel.ntt_dist import quotient_dist
+    from zkpoa_tpu_torch.pipeline import fixtures
+    from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
+    from zkpoa_tpu_torch.pipeline.workflow import load_anon_set
+    from zkpoa_tpu_torch.prover import groth16
+    from zkpoa_tpu_torch.prover.prove import prove
+    from zkpoa_tpu_torch.prover.setup import setup_device
+
+    t_phase = time.time()
+    out = {"ntt": check_ntt_batched(torch, checks, gen)}
+    store = os.path.join(OUT_DIR, "pg_store")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    batch_mesh, data_mesh = PM.make_mesh(1, "batch"), PM.make_mesh(1, "data")
+    grid = PM.make_hierarchical_mesh(shape=(1, 1))
+
+    # the references, outside the counted window
+    atts = parse_signatures_file(os.path.join(RUN2, "sigs.json"))
+    t0 = time.perf_counter()
+    builds = []
+    for att in atts:
+        circuit = layer_one_circuit([LayerOneInput.from_json_entry(layer_one_input([att]), 0)])
+        builds.append(circuit.compile() + (circuit.public_values,))
+    build_s = time.perf_counter() - t0
+    r1cs = builds[0][0]
+    wits = [w for _, w, _ in builds]
+    t0 = time.perf_counter()
+    pk = setup_device(r1cs, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    seed = "chip-smoke-batch"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seq = [prove(pk, r1cs, w, "cuda", seed=f"{seed}-b{i}") for i, w in enumerate(wits)]
+    torch.cuda.synchronize()
+    seq_s, seq_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    a_ev = rand_field(torch, L.BN254_FR, 1 << LAYER_ONE_LOG_DOMAIN, gen)
+    b_ev = rand_field(torch, L.BN254_FR, 1 << LAYER_ONE_LOG_DOMAIN, gen)
+    c_ev = L.mont_mul(L.BN254_FR, a_ev, b_ev)  # A*B - C vanishes on the domain
+    h_want, quotient_ms = once_ms(torch, lambda: N.quotient(a_ev, b_ev, c_ev))
+    gens, scal = H.host_inputs(MSM_STAGES_LOG_N)
+    table = H.fixed_base_points(BN254_G1, bn254.G1_GEN, bn254.g1_add, gens, "cuda")
+    sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
+    msm_want = [bn254.g1_mul(bn254.G1_GEN, sum(s * g for s, g in zip(ss, gens)) % bn254.R)
+                for ss in (scal, scal[-1:] + scal[:-1])]
+    rng = np.random.default_rng(5)
+    raw = rng.bytes(64 << 16)
+    pubs = [(int.from_bytes(raw[64 * i:64 * i + 32], "big"),
+             int.from_bytes(raw[64 * i + 32:64 * i + 64], "big")) for i in range(1 << 16)]
+    t0 = time.perf_counter()
+    addr_cpu = K.eth_addresses_batch(pubs, device="cpu")
+    keccak_cpu_s = time.perf_counter() - t0
+    signers = [secp256k1.pubkey_from_private(k) for k in fixtures.deterministic_keys(2)]
+
+    # the path, counted
+    _build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    batched_s = []
+    for k in range(2):  # the first call's collective sets up the group's communicator
+        t0 = time.perf_counter()
+        proofs = prove_batched(pk, r1cs, wits, batch_mesh, seed=seed)
+        torch.cuda.synchronize()
+        batched_s.append(time.perf_counter() - t0)
+        if k == 0:
+            counts_prove = dict(_build.COUNTS)
+    batched_peak = torch.cuda.max_memory_allocated()
+    dist_ms = []
+    for _ in range(2):  # the first call builds the power tables
+        h_dist, ms = once_ms(torch, lambda: quotient_dist(a_ev, b_ev, c_ev, data_mesh))
+        dist_ms.append(ms)
+    t0 = time.perf_counter()
+    msm_got = [PM.msm_sharded(BN254_G1, table, sc, data_mesh, bn254.g1_add, bn254.g1_mul)]
+    msm_sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    msm_got += PM.msm_batch_sharded(BN254_G1, table, torch.stack([sc, sc.roll(1, 0)]), grid,
+                                    bn254.g1_add, bn254.g1_mul)
+    msm_batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    addr_card = K.eth_addresses_batch(pubs)
+    keccak_s = time.perf_counter() - t0
+    signer_addrs = K.eth_addresses_batch(signers)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    dist.destroy_process_group()
+
+    vk = groth16.VerifyingKey.from_json(pk.vk_json)
+    for i, (p, q, (_, _, publics)) in enumerate(zip(proofs, seq, builds)):
+        if json.dumps(p.to_json()) != json.dumps(q.to_json()):
+            fail(f"prove_batched's proof {i} differs from the sequential prove's")
+        if not groth16.verify(vk, p, publics):
+            fail(f"prove_batched's proof {i} does not verify")
+    passes = len(N.ntt_passes(LAYER_ONE_LOG_DOMAIN, N.TILE_LOG))
+    if counts_prove.get("ntt_pass") != 7 * passes:
+        fail(f"prove_batched launched {counts_prove.get('ntt_pass')} NTT passes for two "
+             f"witnesses, expected one a pass of its 7 transforms ({7 * passes})")
+    if not torch.equal(h_dist, h_want):
+        fail("quotient_dist at 2^21 differs from ops.ntt.quotient")
+    if msm_got != [msm_want[0], msm_want[0], msm_want[1]]:
+        fail("msm_sharded / msm_batch_sharded at 2^20 are not (sum s_i g_i mod r) G")
+    if addr_card != addr_cpu:
+        fail("eth_addresses_batch on the card differs from its CPU run")
+    if addr_card[:1 << 10] != [K.eth_address(p) for p in pubs[:1 << 10]]:
+        fail("eth_addresses_batch differs from the host eth_address")
+    anon = set(load_anon_set(os.path.join(RUN2, "anon.csv"))[0])
+    if not all(a in anon for a in signer_addrs) or sorted(signer_addrs) != [a.address for a in atts]:
+        fail("the recorded signers' addresses are not those of the anonymity set and sigs.json")
+    msgs = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).reshape(-1, 64).copy()).to("cuda")
+    keccak_ms = time_ms(torch, lambda: K.keccak256_fixed_batch(msgs), 5)
+
+    out.update(build_s=build_s, setup_s=setup_s, sequential_s=seq_s, sequential_peak=seq_peak,
+               batched_s=batched_s, batched_peak=batched_peak, launches_prove=counts_prove,
+               quotient_ms=quotient_ms, quotient_dist_ms=dist_ms, msm_sharded_s=msm_sharded_s,
+               msm_batch_sharded_s=msm_batch_s, keccak_card_s=keccak_s,
+               keccak_cpu_s=keccak_cpu_s, keccak_device_ms=keccak_ms,
+               wall_s=time.time() - t_phase)
+    log(f"batch: layer one x 2 ({r1cs.n_constraints} constraints, 2^{LAYER_ONE_LOG_DOMAIN}; "
+        f"build {build_s:.2f} s, setup_device {setup_s:.2f} s): sequential prove {seq_s:.3f} s "
+        f"(peak device memory {seq_peak / 2**30:.2f} GiB), prove_batched on a one-rank batch "
+        f"mesh {batched_s[0]:.3f} s (the group's first collective), then {batched_s[1]:.3f} s "
+        f"(peak {batched_peak / 2**30:.2f} GiB); proofs byte-identical, both verified; NTT "
+        f"passes {counts_prove.get('ntt_pass')} for both witnesses")
+    log(f"batch: quotient_dist at 2^{LAYER_ONE_LOG_DOMAIN} on a one-rank data mesh "
+        f"{dist_ms[0]:.3f} ms (its power tables built), then {dist_ms[1]:.3f} ms, vs ops.ntt"
+        f".quotient {quotient_ms:.3f} ms: equal limbs")
+    log(f"batch: msm_sharded G1 2^{MSM_STAGES_LOG_N} {msm_sharded_s:.3f} s, msm_batch_sharded "
+        f"2 x 2^{MSM_STAGES_LOG_N} on a (1, 1) mesh {msm_batch_s:.3f} s (plans included): exact")
+    log(f"batch: eth_addresses_batch of 2^16 public keys on the card {keccak_s:.3f} s (the "
+        f"batched hash {keccak_ms:.3f} ms of device time), on the CPU {keccak_cpu_s:.3f} s: "
+        f"equal; 2^10 equal to the host; the 2 signers found in the anonymity set")
+    log(f"launches in the batch phase: {json.dumps(counts, sort_keys=True)}")
+    log(f"batch phase: {out['wall_s']:.1f} s")
+    return out, counts
+
+
 def setup_ab(torch, bdir):
     """Phase 6: setup_device of each workflow layer circuit with B8 and with
     the B2-loop route, in turns B2, B8, B8, B2; keys must agree."""
@@ -2459,12 +2668,13 @@ def main() -> int:
         ab = setup_ab(torch, bdir)
     stages, counts_ms, msm_stats = msm_stages_path(torch, checks)
     cer, counts_cer = ceremony_path(torch, checks)
-    phases = (counts_l1, counts_wf, counts_rec, counts_ms, counts_cer)
+    batch, counts_batch = batch_multi_gpu(torch, checks, gen)
+    phases = (counts_l1, counts_wf, counts_rec, counts_ms, counts_cer, counts_batch)
     counts = {k: sum(c.get(k, 0) for c in phases) for k in set().union(*phases)}
     missing = [k for k in KERNELS if k not in PHASE3_ONLY and counts.get(k, 0) == 0]
     if missing:
         fail(f"kernels not launched by the layer-one, workflow, recursive layer-two, "
-             f"msm_stages and ceremony workflow phases: {missing}")
+             f"msm_stages, ceremony workflow and batch phases: {missing}")
     merkle = merkle_2p20(torch)
     prof = profile_prove(torch, checks)
     with open(os.path.join(OUT_DIR, "stats.json"), "w") as f:
@@ -2472,6 +2682,7 @@ def main() -> int:
                    "launches_workflow": counts_wf, "launches_msm_stages": counts_ms,
                    "launches_recursive_layer_two": counts_rec, "recursive_layer_two": rec2,
                    "launches_ceremony_workflow": counts_cer, "ceremony": cer,
+                   "launches_batch": counts_batch, "batch": batch,
                    "kernels": checks.rows, "fixed_base": fb_stats, "heavy_rounds": rounds_stats,
                    "msm": msm_stats,
                    "msm_stages": stages, "workflow": wf, "setup_ab": ab, "merkle": merkle,

@@ -996,3 +996,97 @@ def test_ladder_launchers_refuse_what_they_cannot_take(card):
                       sc[:7], 254)  # not 16-byte aligned
     with pytest.raises(ValueError):
         FK.scalar_mul(FK.G1, p, sc.reshape(-1)[1:9], 254)  # one scalar, not 16-byte aligned
+
+
+@pytest.mark.parametrize("shape,inverse", [((3, 1 << 4), False), ((2, 3, 1 << 5), True),
+                                           ((2, 1 << 12), True), ((1 << 11, 1 << 10), False),
+                                           ((65537, 2), True)],
+                         ids=["3x2^4", "2x3x2^5-inv", "2x2^12-inv", "2^11x2^10", "65537x2-inv"])
+def test_batched_ntt_kernel_matches_plain(card, shape, inverse, monkeypatch):
+    """A batch [..., n, 8] in one launch a pass (the grid's second dimension
+    over the transforms, folded into the first past 65,535), the scale table
+    shared; equal to the plain schedule on the batch and to each transform
+    alone, also in tiles of 2^3."""
+    from zkpoa_tpu_torch.ops import ntt as N
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(len(shape))
+    n = shape[-1]
+    x = L.to_i32(torch.randint(0, 2**32, shape + (8,), generator=gen, device=card,
+                               dtype=torch.int64))
+    x[..., 7] &= 0x0FFFFFFF  # canonical: below 2^252 < r
+    scale = N.pow_table(5, n, card, scale=pow(n, -1, bn254.R))
+    N.ntt_kernel(x, inverse, scale)  # the twiddle table is built by B1 launches once
+    _build.reset_counts()
+    got = N.ntt_kernel(x, inverse, scale)
+    torch.cuda.synchronize()
+    log_n = n.bit_length() - 1
+    assert _build.COUNTS == {"ntt_pass": -(-log_n // N.TILE_LOG)}
+    assert torch.equal(got, N.ntt_passes_plain(x, inverse, scale))
+    flat = x.reshape(-1, n, 8)
+    for i in (0, flat.shape[0] - 1):
+        assert torch.equal(got.reshape(-1, n, 8)[i], N.ntt_kernel(flat[i].contiguous(), inverse,
+                                                                  scale))
+    if log_n > 3:
+        monkeypatch.setattr(N, "TILE_LOG", 3)
+        assert torch.equal(N.ntt_kernel(x, inverse, scale), N.ntt_passes_plain(x, inverse, scale))
+
+
+@pytest.fixture
+def one_rank_nccl(card, tmp_path):
+    """A one-rank NCCL process group (file store in tmp_path), destroyed after."""
+    import torch.distributed as dist
+
+    from zkpoa_tpu_torch.parallel import mesh as PM
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    assert PM.init_multihost(device="cuda") == 1  # a group is up: nothing to start
+    yield PM
+    dist.destroy_process_group()
+
+
+def test_one_rank_nccl_quotient_dist_and_prove_batched(one_rank_nccl, card):
+    """quotient_dist at 2^12 on a one-rank "data" mesh equals ops.ntt's
+    quotient limb for limb; prove_batched of two toy witnesses on a one-rank
+    "batch" mesh equals sequential prove with seeds f"bp-b{i}" and verifies;
+    the stacked quotient is one launch a pass for both witnesses."""
+    from zkpoa_tpu_torch.ops import ntt as N
+    from zkpoa_tpu_torch.parallel import batch_prove, ntt_dist
+
+    PM = one_rank_nccl
+    rng = np.random.default_rng(12)
+    ev = [L.BN254_FR.encode([int.from_bytes(rng.bytes(32), "big") % bn254.R
+                             for _ in range(1 << 12)], card) for _ in range(3)]
+    assert torch.equal(ntt_dist.quotient_dist(*ev, PM.make_mesh(1, "data")), N.quotient(*ev))
+
+    def toy(x, y):
+        c = Circuit()
+        out = c.public_output()
+        c.bind_output(out, poseidon(c, [c.var(x), c.var(y)]))
+        return c.compile()
+
+    (r1cs, w0), (_, w1) = toy(7, 11), toy(13, 17)
+    pk = setup_device(r1cs, "cuda", seed="batchkey")
+    _build.reset_counts()
+    proofs = batch_prove.prove_batched(pk, r1cs, [w0, w1], PM.make_mesh(1, "batch"), seed="bp")
+    passes = -(-(pk.domain_size.bit_length() - 1) // N.TILE_LOG)
+    assert _build.COUNTS["ntt_pass"] == 7 * passes
+    vk = groth16.VerifyingKey.from_json(pk.vk_json)
+    for i, (proof, wit) in enumerate(zip(proofs, [w0, w1])):
+        want = prove(pk, r1cs, wit, "cuda", seed=f"bp-b{i}")
+        assert proof.to_json() == want.to_json()
+        assert groth16.verify(vk, proof, [wit[w] for w in range(1, r1cs.n_public + 1)])
+
+
+def test_eth_addresses_batch_on_card_equals_cpu_and_host(card):
+    from zkpoa_tpu_torch.ops import keccak as K
+
+    rng = np.random.default_rng(9)
+    pubs = [(int.from_bytes(rng.bytes(32), "big"), int.from_bytes(rng.bytes(32), "big"))
+            for _ in range(1000)]
+    got = K.eth_addresses_batch(pubs)
+    assert got == K.eth_addresses_batch(pubs, device="cpu")
+    assert got[:64] == [K.eth_address(p) for p in pubs[:64]]
+    msgs = rng.integers(0, 256, size=(7, 135), dtype=np.uint8)
+    assert torch.equal(K.keccak256_fixed_batch(msgs).cpu(), K.keccak256_fixed_batch(msgs, "cpu"))

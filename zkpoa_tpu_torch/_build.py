@@ -63,8 +63,9 @@ SIGNATURES = {
     "zk_point_fold": [_I, _P, _P, _P, _L, _I, _P, _P, _P, _P],
     # field_ops.cu latency probe: (a, b, out, steps, stream)
     "zk_mont_chain": [_P, _P, _P, _L, _P],
-    # ntt.cu: (in, out, twiddles, scale, log_n, s0, w, log_c, first, scale_mode, stream)
-    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ntt.cu: (in, out, twiddles, scale, log_n, s0, w, log_c, first, scale_mode, batch,
+    # stride, stream)
+    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P],
     # fixed_base.cu: (group, tx, ty, tvalid, scalars, nwin, n, ox, oy, oz, stream)
     "zk_fixed_base": [_I, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P],
     # heavy_rounds.cu: (group, n_tables, tables, n_seg, segs, log_w, ox, oy, oz, stream),

@@ -23,6 +23,13 @@
 // a table of n values (the quotient's coset powers g^i with 1/n and, on the
 // way back, g^-i with 1/n and 1/Z(g) folded in; ops/ntt.py builds them).
 // Twiddles are read from the one cached table of n/2 powers w^k by index.
+// A batch of independent transforms (the JAX package's leading axes: the
+// stacked operands of batch proving, the rows and columns of the four-step
+// transform) runs in the same launches: transform b starts at element
+// b * stride, the grid's second dimension runs over the transforms (folded
+// into the first past its 65,535 limit), and all share the twiddles and the
+// scale, indexed by the position inside the transform. A batch of one is
+// the single transform's launch.
 //
 // What bounds it: the products, n/2 log_n Montgomery products a transform
 // (a 2^21 transform is 22M products, 0.34 ms of int32 issue at 256
@@ -55,13 +62,19 @@ __device__ __forceinline__ void smem_store(uint32_t* s, uint32_t tile, uint32_t 
 __global__ void __launch_bounds__(NTT_THREADS)
 ntt_pass_kernel(const uint32_t* in, uint32_t* out, const uint32_t* __restrict__ tw,
                 const uint32_t* __restrict__ scale, int log_n, int s0, int w, int log_c,
-                int first, int scale_mode) {
+                int first, int scale_mode, size_t stride) {
   extern __shared__ uint32_t sm[];
   const uint32_t tile = 1u << (w + log_c);
   const uint32_t cmask = (1u << log_c) - 1;
   const int lb_bits = s0 - log_c;
-  const uint32_t lb = blockIdx.x & ((1u << lb_bits) - 1);
-  const uint32_t h = blockIdx.x >> lb_bits;
+  const int log_blocks = log_n - w - log_c;  // blocks a transform
+  const size_t lin = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const uint32_t bx = (uint32_t)(lin & ((1u << log_blocks) - 1));
+  const size_t off = (lin >> log_blocks) * stride * 8;  // this transform's first limb
+  in += off;
+  out += off;
+  const uint32_t lb = bx & ((1u << lb_bits) - 1);
+  const uint32_t h = bx >> lb_bits;
   const uint32_t l0 = lb << log_c;
   const uint32_t base = (h << (s0 + w)) | l0;
   for (uint32_t k = threadIdx.x; k < tile; k += blockDim.x) {
@@ -98,16 +111,17 @@ ntt_pass_kernel(const uint32_t* in, uint32_t* out, const uint32_t* __restrict__ 
 
 }  // namespace zk
 
-// One pass of the transform: stages s0 .. s0 + w - 1 over tiles of
-// 2^(w + log_c) elements (ops/ntt.py `ntt_passes` gives the schedule).
-// first: read `in` through the bit reversal (else in == out, in place);
-// last pass: scale_mode 1 or 2 multiplies by scale[0] or scale[i].
+// One pass of `batch` transforms, transform b at element b * stride:
+// stages s0 .. s0 + w - 1 over tiles of 2^(w + log_c) elements (ops/ntt.py
+// `ntt_passes` gives the schedule). first: read `in` through the bit
+// reversal (else in == out, in place); last pass: scale_mode 1 or 2
+// multiplies by scale[0] or scale[i], i the position inside the transform.
 extern "C" int zk_ntt_pass(const void* in, void* out, const void* tw, const void* scale,
                            int log_n, int s0, int w, int log_c, int first, int scale_mode,
-                           void* stream) {
+                           long long batch, long long stride, void* stream) {
   if (log_n < 0 || log_n > 28 || s0 < 0 || w < 0 || log_c < 0 || log_c > s0 ||
       w + log_c > zk::NTT_MAX_TILE_LOG || s0 + w > log_n || scale_mode < 0 || scale_mode > 2 ||
-      (first && s0 != 0))
+      (first && s0 != 0) || batch < 1 || stride < (1ll << log_n))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)32 << (w + log_c);
   static bool attr_set = false;
@@ -119,11 +133,16 @@ extern "C" int zk_ntt_pass(const void* in, void* out, const void* tw, const void
     attr_set = true;
   }
   const unsigned blocks = 1u << (log_n - w - log_c);
+  dim3 grid(blocks, (unsigned)batch);
+  if (batch > 65535) {  // the grid's second dimension: fold the batch into the first
+    if ((long long)blocks * batch > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+    grid = dim3((unsigned)(blocks * batch), 1);
+  }
   const int half = (1 << (w + log_c)) >> 1;
   const int threads = half < 32 ? 32 : (half > zk::NTT_THREADS ? zk::NTT_THREADS : half);
-  zk::ntt_pass_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  zk::ntt_pass_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(scale), log_n, s0, w, log_c,
-      first, scale_mode);
+      first, scale_mode, (size_t)stride);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-from ...host import RATE_BYTES, ROUNDS, _RC, _ROT
+from ...ops.keccak import RATE_BYTES, ROUNDS, _RC, _ROT
 from ..r1cs import LC, AnyLC, Circuit, _lc
 
 

@@ -5,11 +5,16 @@ Port of `zkpoa_tpu/ops/ntt.py` (`ntt` :94, `coset_qap_evals` :145,
 package's blocked four-step variant (`ops/ntt_blocked.py`) exists to fit
 TPU HBM; at a 2^21 domain the three operands here are ~200 MB.
 
-Values are Montgomery limb tensors [n, 8]. On the card a transform is
+Values are Montgomery limb tensors [..., n, 8]: the transform runs over
+axis -2 and leading axes are a batch of independent transforms, as in the
+JAX package (`prove_batched` stacks its operands, the four-step NTT
+transforms the rows and columns of a matrix). On the card a transform is
 ceil(log_n / TILE_LOG) launches of one stage-blocked pass kernel
 (csrc/ntt.cu): each pass runs up to TILE_LOG butterfly stages on a tile in
 shared memory, the first reads through the bit reversal, the last
-multiplies by a scale. The quotient folds its constant factors into those
+multiplies by a scale; a batch runs in the same launches, the grid's
+second dimension over its transforms, which share the twiddle table and
+the scale. The quotient folds its constant factors into those
 scales: an inverse transform's 1/n, the coset powers g^i after the three
 inverse transforms, and g^-i with 1/n and 1/Z(g) after the last one. On the
 CPU the same schedule runs in plain torch (`ntt_passes_plain`); `ntt_plain`
@@ -119,7 +124,7 @@ def _scale_mode(scale: Optional[torch.Tensor], n: int) -> int:
 
 
 def _apply_scale_plain(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
-    mode = _scale_mode(scale, x.shape[0])
+    mode = _scale_mode(scale, x.shape[-2])
     if mode == 0:
         return x
     return L.mont_mul_plain(BN254_FR, x, scale.reshape(1, 8) if mode == 1 else scale)
@@ -131,18 +136,18 @@ def ntt_plain(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     product of the odd half by the stage twiddles and an add/sub pair."""
     spec = BN254_FR
     log_n = _log_size(values)
-    n, device = 1 << log_n, values.device
-    x = values[_bitrev(log_n, device)]
+    n, device, lead = 1 << log_n, values.device, values.shape[:-2]
+    x = values[..., _bitrev(log_n, device), :]
     if log_n:
         big = _twiddles(log_n, inverse, device)
         for s in range(log_n):
             half = 1 << s
             tw = big[:: n // (2 * half)]  # w^(j n / 2h), j < h
-            xb = x.view(n // (2 * half), 2, half, 8)
-            u = xb[:, 0]
-            v = L.mont_mul_plain(spec, xb[:, 1], tw)
+            xb = x.reshape(lead + (n // (2 * half), 2, half, 8))
+            u = xb[..., 0, :, :]
+            v = L.mont_mul_plain(spec, xb[..., 1, :, :], tw)
             x = torch.stack([L.add_mod_plain(spec, u, v), L.sub_mod_plain(spec, u, v)],
-                            dim=1).view(n, 8)
+                            dim=-3).reshape(lead + (n, 8))
     if inverse:
         x = L.mont_mul_plain(spec, x, spec.encode([pow(n, -1, R)], device))
     return x
@@ -153,15 +158,16 @@ def ntt_passes_plain(values: torch.Tensor, inverse: bool = False,
                      tile_log: Optional[int] = None) -> torch.Tensor:
     """The pass kernel's schedule in plain torch, every block of a pass at
     once: the same tile indices, butterfly pairs and twiddle indices as
-    csrc/ntt.cu, the scale applied in the last pass. No 1/n: an inverse
-    transform's scale carries it."""
+    csrc/ntt.cu, the scale applied in the last pass, every transform of
+    a batch [..., n, 8] alike. No 1/n: an inverse transform's scale
+    carries it."""
     spec = BN254_FR
     log_n = _log_size(values)
     n, device = 1 << log_n, values.device
     big = _twiddles(log_n, inverse, device)
     passes = ntt_passes(log_n, TILE_LOG if tile_log is None else tile_log)
     ar = lambda m: torch.arange(m, device=device, dtype=torch.int64)  # noqa: E731
-    x = values
+    x = values.reshape(-1, n, 8)
     for p, (s0, w, log_c) in enumerate(passes):
         tile, cmask = 1 << (w + log_c), (1 << log_c) - 1
         blk = ar(n >> (w + log_c))[:, None]
@@ -170,7 +176,7 @@ def ntt_passes_plain(values: torch.Tensor, inverse: bool = False,
         base = ((blk >> lb_bits) << (s0 + w)) | l0
         k = ar(tile)[None, :]
         i = base | ((k >> log_c) << s0) | (k & cmask)  # [blocks, tile]
-        t = x[_bitrev(log_n, device)[i] if p == 0 else i]
+        t = x[:, _bitrev(log_n, device)[i] if p == 0 else i]  # [batch, blocks, tile, 8]
         for r in range(w):
             s, rmask = s0 + r, (1 << r) - 1
             q = ar(tile >> 1)
@@ -178,28 +184,30 @@ def ntt_passes_plain(values: torch.Tensor, inverse: bool = False,
             k_lo = ((((bq >> r) << (r + 1)) | (bq & rmask)) << log_c) | c
             k_hi = k_lo + (1 << (r + log_c))
             j = ((bq & rmask) << s0)[None, :] | l0 | c[None, :]  # i mod 2^s
-            u = t[:, k_lo]
-            v = L.mont_mul_plain(spec, t[:, k_hi], big[j << (log_n - 1 - s)])
-            t[:, k_lo] = L.add_mod_plain(spec, u, v)
-            t[:, k_hi] = L.sub_mod_plain(spec, u, v)
-        y = torch.empty_like(values)
-        y[i.reshape(-1)] = t.reshape(-1, 8)
+            u = t[:, :, k_lo]
+            v = L.mont_mul_plain(spec, t[:, :, k_hi], big[j << (log_n - 1 - s)])
+            t[:, :, k_lo] = L.add_mod_plain(spec, u, v)
+            t[:, :, k_hi] = L.sub_mod_plain(spec, u, v)
+        y = torch.empty_like(x)
+        y[:, i.reshape(-1)] = t.reshape(x.shape[0], -1, 8)
         x = y
-    return _apply_scale_plain(x, scale)
+    return _apply_scale_plain(x.reshape(values.shape), scale)
 
 
 def ntt_kernel(values: torch.Tensor, inverse: bool = False,
                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The transform by the pass kernel (csrc/ntt.cu) in tiles of
-    2^TILE_LOG, one launch a pass, the scale folded into the last; CUDA
-    tensors only."""
+    2^TILE_LOG, one launch a pass for every transform of the batch
+    [..., n, 8], the scale folded into the last; CUDA tensors only."""
     if values.dtype != torch.int32:
         raise TypeError(f"ntt_kernel: expected int32 limbs, got {values.dtype}")
-    if values.dim() != 2 or values.shape[1] != 8 or not values.is_contiguous():
-        raise ValueError(f"ntt_kernel: expected contiguous [n, 8] limbs, got "
+    if values.dim() < 2 or values.shape[-1] != 8 or not values.is_contiguous():
+        raise ValueError(f"ntt_kernel: expected contiguous [..., n, 8] limbs, got "
                          f"{tuple(values.shape)}")
     log_n = _log_size(values)
-    mode = _scale_mode(scale, 1 << log_n)
+    n = 1 << log_n
+    batch = values.numel() // (8 * n)
+    mode = _scale_mode(scale, n)
     if not values.is_cuda:
         raise ValueError("ntt_kernel: values must be a CUDA tensor")
     if mode and (scale.device != values.device or scale.dtype != torch.int32
@@ -208,13 +216,15 @@ def ntt_kernel(values: torch.Tensor, inverse: bool = False,
     passes = ntt_passes(log_n, TILE_LOG)
     big = _twiddles(log_n, inverse, values.device)
     out = torch.empty_like(values)
+    if batch == 0:
+        return out
     for p, (s0, w, log_c) in enumerate(passes):
         last = p == len(passes) - 1
         _build.launch(
             "zk_ntt_pass", "ntt_pass",
             values.data_ptr() if p == 0 else out.data_ptr(), out.data_ptr(), big.data_ptr(),
             scale.data_ptr() if mode else 0, log_n, s0, w, log_c, int(p == 0),
-            mode if last else 0,
+            mode if last else 0, batch, n,
         )
     return out
 
@@ -227,8 +237,9 @@ def _transform(values: torch.Tensor, inverse: bool,
 
 
 def ntt(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
-    """Transform of Montgomery limbs [n, 8], n a power of two (an inverse
-    transform's 1/n folded into its last pass)."""
+    """Transform of Montgomery limbs [..., n, 8] over axis -2, n a power
+    of two, leading axes a batch (an inverse transform's 1/n folded into
+    its last pass)."""
     if not inverse:
         return _transform(values, False, None)
     n, device = values.shape[-2], values.device
@@ -240,7 +251,8 @@ def coset_qap_evals(a_ev, b_ev, c_ev, shift: int = None) -> torch.Tensor:
     """(A*B - C) evaluated over the coset shift*D: the h-MSM operand for
     keys in snarkjs' coset-Lagrange basis (port of `ntt.py:145`). Each
     operand: an inverse transform whose last pass multiplies element i by
-    shift^i / n, then a forward transform."""
+    shift^i / n, then a forward transform. Operands [..., n, 8], leading
+    axes a batch."""
     n = a_ev.shape[-2]
     if shift is None:
         shift = snarkjs_coset_shift(n.bit_length() - 1)
@@ -255,7 +267,7 @@ def coset_qap_evals(a_ev, b_ev, c_ev, shift: int = None) -> torch.Tensor:
 
 
 def quotient(a_ev, b_ev, c_ev) -> torch.Tensor:
-    """h(X) coefficients [n, 8] (Montgomery) with (A*B - C) = h * Z on the
+    """h(X) coefficients [..., n, 8] (Montgomery) with (A*B - C) = h * Z on the
     domain, Z = X^n - 1 (port of `ntt.py:173`): the coset evaluations, then
     one inverse transform whose last pass multiplies element i by
     g^-i / (n Z(g)), Z(g) = g^n - 1."""

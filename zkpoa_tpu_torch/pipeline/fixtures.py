@@ -16,7 +16,7 @@ import json
 from typing import List, Optional, Tuple
 
 from ..fields import secp256k1 as S
-from ..host import eth_address, keccak256
+from ..ops.keccak import eth_address, keccak256
 
 DEFAULT_MESSAGE = b"zkpoa proof of assets attestation"
 

@@ -1,8 +1,8 @@
 """Signature-set parsing: ECDSA -> ECDSA* with address checks.
 
-Port of `zkpoa_tpu/pipeline/sigs.py` (`parse_signatures`, `layer_one_input`),
-which reaches JAX through `ops/keccak.py`; the port derives addresses with
-its host copy of Keccak-256 (`host.eth_address`).
+Port of `zkpoa_tpu/pipeline/sigs.py` (`parse_signatures`, `layer_one_input`);
+addresses come from the host Keccak-256 of the port's `ops/keccak.py`, as
+the original's come from `zkpoa_tpu/ops/keccak.py`.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from dataclasses import dataclass
 from typing import List
 
 from ..fields import secp256k1
-from ..host import eth_address
+from ..ops.keccak import eth_address
 from ..utils import serde
 
 

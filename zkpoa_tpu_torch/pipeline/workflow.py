@@ -18,15 +18,22 @@ in the reference's JSON shapes.
     from a powers-of-tau ceremony file plus the optional phase-2
     contribution and beacon (`prover/ptau.py`), cached by circuit shape in
     `zkey_cache` (`prover/cache.py`).
-  * One card: batches of one shape are proved in turn against one key, and
-    the Merkle tree is built on the main thread (a second host thread
+  * One process: batches of one shape are proved in turn against one key,
+    and the Merkle tree is built on the main thread (a second host thread
     would only contend with circuit building for the interpreter lock).
+    Under `torchrun --nproc-per-node k` (one card a rank) every rank runs
+    the same deterministic workflow and each shape's batches are proved
+    by `parallel/batch_prove.py` `prove_batched` over a "batch" mesh, a
+    block a rank (the JAX package's `_prove_many`); rank 0's build
+    directory is the output, the other ranks write into a private scratch
+    directory, only read the key cache, and log nothing.
 
 CLI, the reference's 3-argument contract (full_workflow.sh:43):
     python -m zkpoa_tpu_torch.pipeline.workflow <sigs.json> <anon_set.csv> <blind>
         [-b BUILD_DIR] [-p IDEAL_BATCH_SIZE] [-m MODE] [-z ZKEY_CACHE]
         [-H TREE_HEIGHT] [-r] [--profile] [--device cuda|cpu]
         [--ptau FILE [--contribute ENTROPY] [--beacon HASH]]
+On k cards: torchrun --nproc-per-node k -m zkpoa_tpu_torch.pipeline.workflow ...
 """
 
 from __future__ import annotations
@@ -36,9 +43,14 @@ import contextlib
 import csv
 import json
 import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import torch
+import torch.distributed as dist
+
+from .. import _build
 from ..fields import curve25519 as C
 from ..merkle.tree import MerkleTree, find_owned_indices
 from ..models.layers import (
@@ -51,6 +63,8 @@ from ..models.layers import (
     membership_sum_circuit,
 )
 from ..ops import poseidon as poseidon_host
+from ..parallel import mesh as PM
+from ..parallel.batch_prove import prove_batched
 from ..prover import groth16
 from ..prover.cache import cached_setup
 from ..prover.prove import prove
@@ -198,9 +212,11 @@ def run_workflow(
             _log(f"{name} {msg}")
             _bench(f"{name} {msg}")
 
+        # under several ranks only rank 0 writes the shared cache
         return cached_setup(r1cs, zkey_cache, name, device, seed=setup_seed, hits=cached_keys,
                             ptau_path=ptau_path, contribute_entropy=contribute_entropy,
-                            beacon_hash=beacon_hash, log=split)
+                            beacon_hash=beacon_hash, log=split,
+                            save=not (dist.is_initialized() and dist.get_rank() > 0))
 
     def _resume_layer(bi: int, name: str) -> Optional[dict]:
         """A completed batch layer from its files (every stage restarts
@@ -418,9 +434,16 @@ def _shape_groups(batches) -> List[List[int]]:
 
 
 def _prove_many(pk, r1cs, wits, seeds: List[str], device) -> List:
-    """prove() for several same-shape witnesses, in turn on one device
-    (the JAX package's sequential path; the same seeds give the same
-    proofs), each logging its phase ends."""
+    """prove() for several same-shape witnesses: batched over a mesh
+    "batch" axis when a process group of more than one rank is up (the
+    reference's `seq 0 k-1 | parallel prove_layers_one_two`,
+    full_workflow.sh:552; port of `zkpoa_tpu/pipeline/workflow.py:497`),
+    else in turn on one device, each logging its phase ends. The seeds
+    match between the two paths, so their proofs are byte-identical."""
+    world = PM.world_size()
+    if len(wits) > 1 and world > 1:
+        mesh = PM.make_mesh(min(world, len(wits)), axis="batch", device=device)
+        return prove_batched(pk, r1cs, wits, mesh, seeds=seeds, axis="batch")
     return [prove(pk, r1cs, w, device, seed=s, log=_log) for w, s in zip(wits, seeds)]
 
 
@@ -536,13 +559,37 @@ def main(argv=None) -> int:
         ap.error("--contribute/--beacon require --ptau: phase-2 "
                  "randomization only applies to a ceremony-derived key "
                  "(without it the seeded dev SRS would be used silently)")
-    res = run_workflow(
-        args.sigs, args.anon_set, args.blinding_factor,
-        build_root=args.build_dir, ideal_batch_size=args.batch_size, mode=args.mode,
-        zkey_cache=args.zkey_cache, tree_height=args.tree_height, profile=args.profile,
-        resume=args.resume, device=args.device, ptau_path=args.ptau,
-        contribute_entropy=args.contribute, beacon_hash=args.beacon,
-    )
+    started = not dist.is_initialized()
+    world = PM.init_multihost(device=args.device)
+    if world > 1 and args.resume:
+        ap.error("--resume runs in one process: ranks resuming from different files would "
+                 "prove different batches")
+    rank, device = (dist.get_rank() if world > 1 else 0), args.device
+    build_root = args.build_dir
+    with contextlib.ExitStack() as stack:
+        if world > 1 and torch.device(device).type == "cuda":
+            device = f"cuda:{torch.cuda.current_device()}"
+            if rank == 0:
+                _build.lib()  # one build of the kernels; the other ranks load it
+            dist.barrier()
+        if rank > 0:
+            # the same workflow, written where no one reads it: rank 0's build is the
+            # output; the key cache is shared, and read only
+            scratch = stack.enter_context(tempfile.TemporaryDirectory(prefix=f"zkpoa-rank{rank}-"))
+            build_root = os.path.join(scratch, "build")
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        if world > 1 and started:
+            stack.callback(dist.destroy_process_group)
+        res = run_workflow(
+            args.sigs, args.anon_set, args.blinding_factor,
+            build_root=build_root, ideal_batch_size=args.batch_size, mode=args.mode,
+            zkey_cache=args.zkey_cache, tree_height=args.tree_height, profile=args.profile,
+            resume=args.resume, device=device, ptau_path=args.ptau,
+            contribute_entropy=args.contribute, beacon_hash=args.beacon,
+        )
+    if rank:
+        return 0
     _log(json.dumps({"build_dir": res.build_dir, "balance_sum": str(res.balance_sum),
                      "merkle_root": str(res.merkle_root),
                      "timings": {k: round(v, 2) for k, v in res.timings.items()}}))

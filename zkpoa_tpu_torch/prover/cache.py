@@ -52,6 +52,7 @@ def save_key(path: str, pk: ProvingKey) -> None:
         q = getattr(pk, name)
         tables[name] = {"xs": q.xs.cpu(), "ys": q.ys.cpu(), "valid": q.valid.cpu()}
     meta = json.dumps({k: getattr(pk, k) for k in _HOST_FIELDS})
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     torch.save({"tables": tables, "meta": meta}, tmp)
     os.replace(tmp, path)
@@ -74,10 +75,12 @@ def cached_setup(r1cs: R1CS, cache_dir: Optional[str], name: str, device,
                  seed: str = "zkpoa-test-srs", hits: Optional[List[str]] = None,
                  ptau_path: Optional[str] = None, contribute_entropy: Optional[str] = None,
                  beacon_hash: Optional[str] = None,
-                 log: Optional[Callable[[str], None]] = None) -> ProvingKey:
+                 log: Optional[Callable[[str], None]] = None, save: bool = True) -> ProvingKey:
     """`setup_device` with an on-disk cache. `name` is the size-encoded key
     name of the reference, e.g. 'layer_two_full_2_sigs_12_height'; a key
-    loaded from the cache appends its name to `hits`.
+    loaded from the cache appends its name to `hits`. With `save` False
+    the cache is only read: a key made here is not written (the ranks
+    above 0 of a multi-process workflow, which share rank 0's cache).
 
     With `ptau_path`, the key derives from the powers-of-tau ceremony file
     instead of the seeded dev setup, the reference's production path
@@ -85,17 +88,17 @@ def cached_setup(r1cs: R1CS, cache_dir: Optional[str], name: str, device,
     key made here logs its setup's split by part through `log`."""
     if ptau_path is not None:
         return _cached_setup_ptau(r1cs, cache_dir, name, device, ptau_path, contribute_entropy,
-                                  beacon_hash, hits, log)
+                                  beacon_hash, hits, log, save)
     if cache_dir is None:
         return setup_device(r1cs, device, seed=seed)
-    os.makedirs(cache_dir, exist_ok=True)
     path = os.path.join(cache_dir, f"{name}.{_shape_digest(r1cs, seed)}.pt")
     if os.path.exists(path):
         if hits is not None:
             hits.append(name)
         return load_key(path, device)
     pk = setup_device(r1cs, device, seed=seed)
-    save_key(path, pk)
+    if save:
+        save_key(path, pk)
     return pk
 
 
@@ -112,7 +115,7 @@ def _ptau_digest(ptau_path: str) -> str:
 
 def _cached_setup_ptau(r1cs: R1CS, cache_dir: Optional[str], name: str, device, ptau_path: str,
                        contribute_entropy: Optional[str], beacon_hash: Optional[str],
-                       hits: Optional[List[str]], log) -> ProvingKey:
+                       hits: Optional[List[str]], log, save: bool = True) -> ProvingKey:
     """Ceremony-derived key: phase 1 from the .ptau file, then the
     optional phase-2 contribution and beacon (reference
     g16_setup.sh:255-278), cached as a key file keyed on (circuit shape,
@@ -134,7 +137,6 @@ def _cached_setup_ptau(r1cs: R1CS, cache_dir: Optional[str], name: str, device, 
 
     if cache_dir is None:
         return build()
-    os.makedirs(cache_dir, exist_ok=True)
     tag = f"{_ptau_digest(ptau_path)}|{contribute_entropy}|{beacon_hash}"
     path = os.path.join(cache_dir, f"{name}.ptau.{_shape_digest(r1cs, tag)}.pt")
     if os.path.exists(path):
@@ -142,5 +144,6 @@ def _cached_setup_ptau(r1cs: R1CS, cache_dir: Optional[str], name: str, device, 
             hits.append(name)
         return load_key(path, device)
     pk = build()
-    save_key(path, pk)
+    if save:
+        save_key(path, pk)
     return pk

@@ -13,7 +13,7 @@ same seeded hash as the JAX package, so the proofs are identical.
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,8 +36,20 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _prove_device(pk: ProvingKey, r1cs: R1CS, witness: Sequence[int], r: int, s: int,
-                  device, log: Callable[[str], None]) -> Proof:
+def _stack(rows):
+    """[B, ...] of B same-shape tensors; a batch of one is a view, no copy."""
+    return rows[0].unsqueeze(0) if len(rows) == 1 else torch.stack(rows)
+
+
+def _prove_device(pk: ProvingKey, r1cs: R1CS, witnesses: Sequence[Sequence[int]],
+                  rs: Sequence[Tuple[int, int]], device,
+                  log: Callable[[str], None]) -> List[Proof]:
+    """Proofs of same-shape witnesses, with randomness rs[i] = (r, s): the
+    QAP evaluations of all of them stacked through one quotient (the NTT
+    pass kernel takes the leading axis as a batch), then every witness's
+    a/b1/c/h MSMs in one `msm_many` and the b2 MSMs in another. A batch of
+    one is the single prove; a batch of several gives each witness the
+    group elements, so the proof, that its own prove gives."""
     spec = BN254_FR
     t0 = time.perf_counter()
 
@@ -45,33 +57,41 @@ def _prove_device(pk: ProvingKey, r1cs: R1CS, witness: Sequence[int], r: int, s:
         _sync(device)
         log(f"prove: {name} {time.perf_counter() - t0:.3f}s")
 
-    w_dev = torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in witness])).to(device)
+    w_devs = [torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in w])).to(device)
+              for w in witnesses]
     phase("witness upload")
-    a_p, b_p, c_p = eval_matrices_device(r1cs.pack(), w_dev, pk.domain_size)
+    packed = r1cs.pack()
+    evals = [eval_matrices_device(packed, w_dev, pk.domain_size) for w_dev in w_devs]
     phase("QAP SpMV")
-    a_m, b_m, c_m = (spec.to_mont(v) for v in (a_p, b_p, c_p))
+    a_m, b_m, c_m = (spec.to_mont(_stack([e[k] for e in evals])) for k in range(3))
+    del evals
     if pk.h_basis == "monomial":
-        h = spec.from_mont(quotient(a_m, b_m, c_m))[: len(pk.h_query)]
+        h = spec.from_mont(quotient(a_m, b_m, c_m))[:, : len(pk.h_query)]
     elif pk.h_basis == "coset":
         h = spec.from_mont(coset_qap_evals(a_m, b_m, c_m))
     else:
         raise ValueError(f"unknown h_basis {pk.h_basis!r}")
-    del a_p, b_p, c_p, a_m, b_m, c_m
+    del a_m, b_m, c_m
     phase("quotient h(X)")
 
-    wplan = M.plan_msm(w_dev)
-    hplan = M.plan_msm(h, M.auto_c(len(pk.h_query)), split_heavy=False)
-    phase(f"MSM plans (c={wplan.c}/{hplan.c}, {len(wplan.heavy)} heavy values)")
-    a_acc, b1_acc, c_acc, h_acc = M.msm_many(BN254_G1, [
-        (pk.a_query, wplan, 0), (pk.b1_query, wplan, 0),
-        (pk.c_query, wplan, pk.n_public + 1), (pk.h_query, hplan, 0),
-    ], bn254.g1_add, bn254.g1_mul)
+    wplans = [M.plan_msm(w_dev) for w_dev in w_devs]
+    c_h = M.auto_c(len(pk.h_query))
+    hplans = [M.plan_msm(h[i], c_h, split_heavy=False) for i in range(len(witnesses))]
+    del h
+    phase(f"MSM plans (c={wplans[0].c}/{c_h}, {sum(len(p.heavy) for p in wplans)} heavy values)")
+    jobs = []
+    for wplan, hplan in zip(wplans, hplans):
+        jobs += [(pk.a_query, wplan, 0), (pk.b1_query, wplan, 0),
+                 (pk.c_query, wplan, pk.n_public + 1), (pk.h_query, hplan, 0)]
+    g1 = M.msm_many(BN254_G1, jobs, bn254.g1_add, bn254.g1_mul)
     phase("a/b1/c/h G1 MSMs")
-    b2_acc = M.msm_shared(BN254_G2, pk.b2_query, wplan, bn254.g2_add, bn254.g2_mul)
+    b2 = M.msm_many(BN254_G2, [(pk.b2_query, wplan, 0) for wplan in wplans], bn254.g2_add,
+                    bn254.g2_mul)
     phase("b2 G2 MSM")
-    proof = _assemble_proof(pk, a_acc, b1_acc, c_acc, h_acc, b2_acc, r, s)
+    proofs = [_assemble_proof(pk, *g1[4 * i: 4 * i + 4], b2[i], r, s)
+              for i, (r, s) in enumerate(rs)]
     phase("assembly")
-    return proof
+    return proofs
 
 
 def _assemble_proof(pk, a_acc, b1_acc, c_acc, h_acc, b2_acc, r, s) -> Proof:
@@ -96,4 +116,4 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: Sequence[int], device,
     s = host._rand_fr(seed, "s") if s is None else s % R
     if pk.a_query.xs.device != torch.device(device):
         pk = pk.to(device)
-    return _prove_device(pk, r1cs, witness, r, s, device, log or (lambda msg: None))
+    return _prove_device(pk, r1cs, [witness], [(r, s)], device, log or (lambda msg: None))[0]
