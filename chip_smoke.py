@@ -2299,13 +2299,13 @@ def profile_prove(torch, checks):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from zkpoa_tpu_torch import _build
-    from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.ops import ntt as N
     from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures_file
     from zkpoa_tpu_torch.prover import __main__ as cli
     from zkpoa_tpu_torch.prover import groth16
     from zkpoa_tpu_torch.prover.prove import _sync, prove
     from zkpoa_tpu_torch.prover.setup import setup_device
+    from zkpoa_tpu_torch.utils import trace
 
     circuit, _name = cli._build_circuit("one", layer_one_input(parse_signatures_file(SIGS)), False)
     r1cs, witness = circuit.compile()
@@ -2332,8 +2332,8 @@ def profile_prove(torch, checks):
         ranges[-1].__enter__()
 
     _build.reset_counts()
-    M.HOST_SYNCS.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace.collect() as events, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ranges[0].__enter__()
         proof = prove(pk, r1cs, witness, "cuda", log=on_phase)
@@ -2342,7 +2342,11 @@ def profile_prove(torch, checks):
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = dict(_build.COUNTS)
-    syncs = dict(M.HOST_SYNCS)
+    syncs = {}  # copies of MSM results to the host, by group
+    for e in events:
+        if e["kind"] == "count" and e["name"] == "host_sync" and \
+                e["site"].startswith("msm_decode"):
+            syncs[e["site"]] = syncs.get(e["site"], 0) + e["n"]
     if not groth16.verify(groth16.VerifyingKey.from_json(pk.vk_json), proof,
                           circuit.public_values):
         fail("the profiled proof does not verify")
@@ -2393,11 +2397,12 @@ def profile_prove(torch, checks):
     rounds = (counts.get("heavy_rounds_g1", 0), counts.get("heavy_rounds_g2", 0))
     b2 = counts.get("point_add_affine_g1", 0) + counts.get("point_add_affine_g2", 0)
     folds = counts.get("point_fold_g1", 0) + counts.get("point_fold_g2", 0)
-    if horner != (1, 1) or rounds != (1, 1) or b2 or folds > 4 or sum(syncs.values()) > 2:
+    one_decode = {"msm_decode_g1": 1, "msm_decode_g2": 1}  # one copy to the host a group
+    if horner != (1, 1) or rounds != (1, 1) or b2 or folds > 4 or syncs != one_decode:
         fail(f"a warm prove launched Horner {horner} times (G1, G2), the rounds kernel "
              f"{rounds} times, the elementwise B2 {b2} times, the fold {folds} times and copied "
-             f"MSM results to the host {sum(syncs.values())} times: expected (1, 1), (1, 1), 0, "
-             f"at most 4 and at most 2")
+             f"MSM results to the host {syncs}: expected (1, 1), (1, 1), 0, at most 4 and "
+             f"{one_decode}")
     return {"unprofiled_s": unprofiled, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / wall, "peak_bytes": peak, "phases": phases,
             "top": [[name, ms, n] for name, (ms, n) in top], "msm_launches_ms": msm_launches,

@@ -11,6 +11,9 @@ Inputs are made with numpy / torch from fixed seeds. Tolerance: exact
 equality of limbs (kernel vs plain) and of decoded points (all of it is
 integer arithmetic)."""
 
+import json
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +34,7 @@ from zkpoa_tpu_torch.ops.fp2 import BN254_G2
 from zkpoa_tpu_torch.prover import groth16
 from zkpoa_tpu_torch.prover.prove import prove
 from zkpoa_tpu_torch.prover.setup import DeviceG1Points, DeviceG2Points, setup_device
+from zkpoa_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -532,15 +536,16 @@ def test_msm_many_heavy_sums_on_card(card, curve):
     plan = M.plan_msm(torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card), 6)
     assert sorted(v for v, _ in plan.heavy) == [1, 7]
     _build.reset_counts()
-    M.HOST_SYNCS.clear()
-    got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)], add, mul)
+    with trace.collect() as events:
+        got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)], add, mul)
     g = curve.group
     assert _build.COUNTS[f"msm_horner_g{g}"] == 1
     assert 1 <= _build.COUNTS[f"point_fold_g{g}"] <= 2
     assert _build.COUNTS[f"heavy_rounds_g{g}"] == 1  # every segment of the group in one launch
     assert f"point_add_affine_g{g}" not in _build.COUNTS
     assert f"point_add_g{g}" not in _build.COUNTS and f"point_double_g{g}" not in _build.COUNTS
-    assert M.HOST_SYNCS == {f"msm_decode_g{g}": 1}
+    assert [(e["name"], e["site"], e["n"]) for e in events] == \
+        [("host_sync", f"msm_decode_g{g}", 1)]
     for k, off in enumerate((0, pad)):
         want = None
         for i, s in enumerate(scal):
@@ -554,6 +559,86 @@ def test_msm_many_heavy_sums_on_card(card, curve):
         on_card = M.tree_sum_many(curve, segs, block, chunk)
         assert curve.decode_jac(on_card) == curve.decode_jac(
             M.tree_sum_many(curve, segs_cpu, block, chunk))
+
+
+# host waits PyTorch's sync debug mode cannot see: torch.unique waits for
+# its output size inside thrust, past the hooks the mode reports from
+UNSEEN_SYNCS = {"plan.unique"}
+
+
+def _syncs_against_sync_debug(fn):
+    """(host_sync counts by site, the waits PyTorch's sync debug mode
+    reports from the package's own lines, by file:line) of fn(). Reports
+    from other frames are left out: the first switch to "warn" in a
+    process reports one at the switch itself."""
+    with warnings.catch_warnings(record=True) as caught, trace.collect() as events:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counted, reported, elsewhere = {}, {}, {}
+    for e in events:
+        if e["kind"] == "count" and e["name"] == "host_sync":
+            counted[e["site"]] = counted.get(e["site"], 0) + e["n"]
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            mine = "zkpoa_tpu_torch" in w.filename
+            k = f"{w.filename.rsplit('/', 2)[-1] if mine else w.filename}:{w.lineno}"
+            out = reported if mine else elsewhere
+            out[k] = out.get(k, 0) + 1
+    print(json.dumps({"counted": counted, "reported": reported, "elsewhere": elsewhere},
+                     sort_keys=True))
+    return counted, reported
+
+
+def _seen(counted):
+    return sum(n for site, n in counted.items() if site not in UNSEEN_SYNCS)
+
+
+@pytest.fixture(scope="module")
+def layer_one(card):
+    """A 2-signature layer-one system, its witness and a development key,
+    proved once so the kernels are built and the constants on the card."""
+    from zkpoa_tpu_torch.models.layers import LayerOneInput, layer_one_circuit
+    from zkpoa_tpu_torch.pipeline.fixtures import generate_signatures
+    from zkpoa_tpu_torch.pipeline.sigs import layer_one_input, parse_signatures
+
+    inp = layer_one_input(parse_signatures(generate_signatures(2, "sync-debug")))
+    system, witness = layer_one_circuit(
+        [LayerOneInput.from_json_entry(inp, i) for i in range(2)]).compile()
+    key = setup_device(system, "cuda", seed="sync-debug|key")
+    prove(key, system, witness, "cuda", r=1, s=2)
+    torch.cuda.synchronize()
+    return key, system, witness
+
+
+def test_host_syncs_of_a_prove_are_what_sync_debug_reports(layer_one):
+    """Every place a layer-one prove waits on the card is counted once as
+    `host_sync` (`host_syncs.prove` reads these counts): the waits the
+    sync debug mode reports, and the one of torch.unique that it cannot
+    see. Without `log` the prove makes no phase synchronize."""
+    key, system, witness = layer_one
+    counted, reported = _syncs_against_sync_debug(
+        lambda: prove(key, system, witness, "cuda", r=3, s=4))
+    assert "prove.phase" not in counted
+    assert counted["plan.heavy_rows"] > 0  # layer one has heavy values
+    assert counted["plan.unique"] == 1  # the witness plan; the h plan splits nothing
+    assert _seen(counted) == sum(reported.values()), (counted, reported)
+
+
+def test_host_syncs_of_a_plan_without_heavy_values_are_what_sync_debug_reports(card):
+    """A plan whose scalars repeat no value: the heavy-value search waits
+    once (its empty copy to the host does not wait)."""
+    rng = np.random.default_rng(72)
+    scal = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(4096)]
+    limbs = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card)
+    torch.cuda.synchronize()
+    counted, reported = _syncs_against_sync_debug(lambda: M.plan_msm(limbs, 6))
+    assert counted["plan.heavy_values"] == 1 and "plan.heavy_rows" not in counted
+    assert counted["plan.unique"] == 1
+    assert _seen(counted) == sum(reported.values()), (counted, reported)
 
 
 def test_horner_and_fold_refuse_what_they_cannot_take(card):

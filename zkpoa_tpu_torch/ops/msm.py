@@ -49,11 +49,12 @@ the plain version, CUDA tensors the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import _build
+from ..utils import trace
 from . import limbs as L
 from .curve import Jac, jac_add, jac_add_affine, jac_double
 
@@ -70,9 +71,6 @@ ROUNDS_MAX_TABLES = 8  # distinct tables one launch of heavy_rounds reads
 # pieces a round of accumulate_plain adds at once: its limb products hold
 # about 6 KB a piece, so a 2^23-scalar plan's 6M pieces would need 36 GiB
 PLAIN_CHUNK = 1 << 20
-
-# copies of MSM results to the host (each one waits on the device), by group
-HOST_SYNCS: Dict[str, int] = {}
 
 
 def auto_c(n: int) -> int:
@@ -172,7 +170,10 @@ class WitnessMsmPlan:
         self.piece_start, self.piece_end, self.piece_ptr = piece_table(starts, n, piece)
         self.n_pieces = int(self.piece_start.shape[0])
         counts = self.piece_ptr[1:] - self.piece_ptr[:-1]
-        self.max_pieces = int(counts.max()) if counts.numel() else 0
+        self.max_pieces = 0
+        if counts.numel():
+            trace.count("host_sync", site="plan.max_pieces")
+            self.max_pieces = int(counts.max())
         self.combine, self.combine_depth = combine_levels(self.piece_ptr, COMBINE_FAN_IN)
 
 
@@ -188,6 +189,7 @@ def piece_table(starts: torch.Tensor, n: int, piece: int):
     count = (e - s + piece - 1) // piece
     ptr = torch.zeros(s.shape[0] + 1, dtype=torch.int64, device=device)
     ptr[1:] = torch.cumsum(count, 0)
+    trace.count("host_sync", site="plan.piece_table")
     n_pieces = int(ptr[-1])
     lane = torch.repeat_interleave(torch.arange(s.shape[0], device=device), count,
                                    output_size=n_pieces)
@@ -209,10 +211,14 @@ def combine_levels(ptr: torch.Tensor, fan_in: int):
     levels, depth = [], 0
     while True:
         count = ptr[1:] - ptr[:-1]
-        most = int(count.max()) if count.numel() else 0
+        most = 0
+        if count.numel():
+            trace.count("host_sync", site="plan.combine")
+            most = int(count.max())
         if most <= fan_in:
             levels.append((ptr[:-1], ptr[1:]))
             return levels, depth + most
+        trace.count("host_sync", site="plan.combine")
         start, end, ptr = piece_table(ptr.unsqueeze(0), int(ptr[-1]), fan_in)
         levels.append((start, end))
         depth += fan_in
@@ -223,8 +229,15 @@ def _heavy_split(scalars: torch.Tensor):
     n = scalars.shape[0]
     mask = torch.ones(n, dtype=torch.bool, device=scalars.device)
     uniq, inverse, counts = torch.unique(scalars, dim=0, return_inverse=True, return_counts=True)
+    trace.count("host_sync", site="plan.unique")  # its output size; the sync debug mode misses it
     heavy = []
-    for u in torch.nonzero(counts >= HEAVY_COUNT_MIN).flatten().tolist():
+    trace.count("host_sync", site="plan.heavy_values")  # the nonzero
+    found = torch.nonzero(counts >= HEAVY_COUNT_MIN).flatten()
+    if found.numel():
+        trace.count("host_sync", site="plan.heavy_values")  # its copy; an empty one is free
+    for u in found.tolist():
+        # the nonzero, the mask's index_put and the value's copy each wait
+        trace.count("host_sync", 3, site="plan.heavy_rows")
         sel = torch.nonzero(inverse == u).flatten()
         mask[sel] = False
         val = L.BN254_FR.from_limbs(uniq[u])[0]
@@ -250,6 +263,7 @@ def plan_msm(scalars: torch.Tensor, c: Optional[int] = None,
     comp = torch.sort(key * (2 * n) + enc, dim=1).values
     order = (comp % (2 * n)).to(torch.int32).contiguous()
     win = torch.arange(nw, device=scalars.device, dtype=torch.int64).unsqueeze(1)
+    trace.count("host_sync", 2, site="plan.bincount")  # bincount reads its input's min and max
     counts = torch.bincount((win * (nb + 1) + key).flatten(), minlength=nw * (nb + 1))
     counts = counts.view(nw, nb + 1)
     starts = torch.zeros((nw, nb + 1), dtype=torch.int64, device=scalars.device)
@@ -273,6 +287,8 @@ def bucket_plan(row: torch.Tensor, negative: torch.Tensor, bucket: torch.Tensor,
     order[0, :n_entries] = (row.to(torch.int64) + negative.to(torch.int64) * n)[perm].to(
         torch.int32)
     starts = torch.zeros((1, n_buckets + 1), dtype=torch.int64, device=device)
+    if n_entries:
+        trace.count("host_sync", 2, site="plan.bincount")
     starts[0, 1:] = torch.cumsum(torch.bincount(bucket, minlength=n_buckets), 0)
     return WitnessMsmPlan(None, n, order, starts.to(torch.int32).contiguous(), [], piece,
                           shape=(1, n_buckets))
@@ -724,9 +740,8 @@ def msm_many(curve, jobs, host_add, host_mul) -> List:
         totals = tuple(t.reshape((len(items), nw) + curve.coord_shape) for t in totals)
         parts.append(horner(curve, totals, c))
         dest += [i for i, _ in items]
+    trace.count("host_sync", site=f"msm_decode_g{curve.group}")
     pts = curve.decode_jac(tuple(torch.cat([p[k] for p in parts]) for k in range(3)))
-    key = f"msm_decode_g{curve.group}"
-    HOST_SYNCS[key] = HOST_SYNCS.get(key, 0) + 1
     out: List = [None] * len(jobs)
     for (i, val), s in zip(owners, pts):
         if s is not None:

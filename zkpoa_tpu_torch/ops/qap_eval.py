@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import limbs as L
 from .limbs import BN254_FR
 
@@ -49,6 +50,21 @@ def _reduce_sums(acc: torch.Tensor) -> torch.Tensor:
     return L.add_mod(spec, lo_mod, hi_mod)
 
 
+def _index(rows: np.ndarray, device) -> torch.Tensor:
+    """A chunk of packed int32 indices as int64 on the device. The copy
+    widens on the host, so it moves 8 bytes an entry, every call."""
+    trace.count("h2d_bytes", 8 * len(rows), site="spmv_index")
+    trace.count("host_sync", site="spmv_index")
+    return torch.from_numpy(rows).to(device, torch.int64)
+
+
+def _pool(packed, device) -> torch.Tensor:
+    """The coefficient pool in Montgomery form on the device."""
+    trace.count("h2d_bytes", packed.pool_limbs.nbytes, site="spmv_pool")
+    trace.count("host_sync", site="spmv_pool")
+    return BN254_FR.to_mont(torch.from_numpy(packed.pool_limbs).to(device))
+
+
 def spmv(scatter: np.ndarray, gather: np.ndarray, cid: np.ndarray,
          pool_mont: torch.Tensor, vec: torch.Tensor, out_size: int) -> torch.Tensor:
     """out[scatter] += pool[cid] * vec[gather] over packed int32 rows; plain
@@ -58,9 +74,7 @@ def spmv(scatter: np.ndarray, gather: np.ndarray, cid: np.ndarray,
     acc = torch.zeros((out_size, 16), dtype=torch.int64, device=device)
     for off in range(0, len(scatter), CHUNK_ROWS):
         sl = slice(off, off + CHUNK_ROWS)
-        idx = torch.from_numpy(scatter[sl]).to(device, torch.int64)
-        g = torch.from_numpy(gather[sl]).to(device, torch.int64)
-        c = torch.from_numpy(cid[sl]).to(device, torch.int64)
+        idx, g, c = (_index(a[sl], device) for a in (scatter, gather, cid))
         prod = L.mont_mul(BN254_FR, pool_mont[c], vec[g])
         acc.index_add_(0, idx, L._split16(L.u32(prod)))
     return _reduce_sums(acc)
@@ -71,7 +85,7 @@ def eval_at_tau_device(packed, lag_plain: torch.Tensor, n_wires: int):
     from the Lagrange values lag_plain [m, 8]; three [n_wires, 8] plain
     tensors (port of `qap_eval.py:141`)."""
     device = lag_plain.device
-    pool_mont = BN254_FR.to_mont(torch.from_numpy(packed.pool_limbs).to(device))
+    pool_mont = _pool(packed, device)
     return tuple(
         spmv(mat.wire, mat.idx, mat.cid, pool_mont, lag_plain, n_wires)
         for mat in (packed.a, packed.b, packed.c)
@@ -91,7 +105,7 @@ def eval_matrices_device(packed, witness: torch.Tensor,
     (a, b, c) plain [domain, 8], zero beyond n_constraints (port of
     `qap_eval.py:163`)."""
     device = witness.device
-    pool_mont = BN254_FR.to_mont(torch.from_numpy(packed.pool_limbs).to(device))
+    pool_mont = _pool(packed, device)
     ev = lambda m: spmv(m.idx, m.wire, m.cid, pool_mont, witness, domain_size)  # noqa: E731
     a_ev, b_ev = ev(packed.a), ev(packed.b)
     if len(packed.c.idx) == 0 and packed.n_constraints:

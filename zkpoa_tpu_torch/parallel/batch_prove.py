@@ -80,7 +80,7 @@ def prove_batched(pk: ProvingKey, r1cs, witnesses: Sequence[Sequence[int]], mesh
             ids = range(i, min(i + CHUNK, hi))
             rs = [(host._rand_fr(seeds[j], "r"), host._rand_fr(seeds[j], "s")) for j in ids]
             proofs = _prove_device(pk, r1cs, [witnesses[j] for j in ids], rs,
-                                   pk.a_query.xs.device, lambda msg: None)
+                                   pk.a_query.xs.device, None)
             mine += zip(ids, proofs)
     done = dict(pair for part in gather_objects(mine) for pair in part)
     return [done[i] for i in range(nb)]

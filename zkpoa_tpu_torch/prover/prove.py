@@ -27,6 +27,7 @@ from ..ops.fp2 import BN254_G2
 from ..ops.limbs import BN254_FR
 from ..ops.ntt import coset_qap_evals, quotient
 from ..ops.qap_eval import eval_matrices_device
+from ..utils import trace
 from .groth16 import Proof
 from .setup import ProvingKey
 
@@ -41,56 +42,79 @@ def _stack(rows):
     return rows[0].unsqueeze(0) if len(rows) == 1 else torch.stack(rows)
 
 
+def _upload(witness: Sequence[int], device) -> torch.Tensor:
+    """A witness as plain limbs [n, 8] on the device."""
+    with trace.span("prove.upload.reduce"):
+        values = [int(x) % R for x in witness]
+    with trace.span("prove.upload.limbs"):
+        limbs = host.scalars_to_limbs_fast(values)
+    with trace.span("prove.upload.copy"):
+        trace.count("h2d_bytes", limbs.nbytes, site="witness")
+        trace.count("host_sync", site="witness")  # a pageable copy waits on the stream
+        return torch.from_numpy(limbs).to(device)
+
+
 def _prove_device(pk: ProvingKey, r1cs: R1CS, witnesses: Sequence[Sequence[int]],
                   rs: Sequence[Tuple[int, int]], device,
-                  log: Callable[[str], None]) -> List[Proof]:
+                  log: Optional[Callable[[str], None]]) -> List[Proof]:
     """Proofs of same-shape witnesses, with randomness rs[i] = (r, s): the
     QAP evaluations of all of them stacked through one quotient (the NTT
     pass kernel takes the leading axis as a batch), then every witness's
     a/b1/c/h MSMs in one `msm_many` and the b2 MSMs in another. A batch of
     one is the single prove; a batch of several gives each witness the
-    group elements, so the proof, that its own prove gives."""
+    group elements, so the proof, that its own prove gives. Each phase is
+    a span (`utils/trace.py`); a caller's `log` gets each phase's end
+    after a device synchronize, and without one nothing synchronizes."""
     spec = BN254_FR
     t0 = time.perf_counter()
 
     def phase(name):
-        _sync(device)
-        log(f"prove: {name} {time.perf_counter() - t0:.3f}s")
+        if log is not None:
+            _sync(device)
+            trace.count("host_sync", site="prove.phase")
+            log(f"prove: {name} {time.perf_counter() - t0:.3f}s")
 
-    w_devs = [torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in w])).to(device)
-              for w in witnesses]
-    phase("witness upload")
-    packed = r1cs.pack()
-    evals = [eval_matrices_device(packed, w_dev, pk.domain_size) for w_dev in w_devs]
-    phase("QAP SpMV")
-    a_m, b_m, c_m = (spec.to_mont(_stack([e[k] for e in evals])) for k in range(3))
-    del evals
-    if pk.h_basis == "monomial":
-        h = spec.from_mont(quotient(a_m, b_m, c_m))[:, : len(pk.h_query)]
-    elif pk.h_basis == "coset":
-        h = spec.from_mont(coset_qap_evals(a_m, b_m, c_m))
-    else:
-        raise ValueError(f"unknown h_basis {pk.h_basis!r}")
-    del a_m, b_m, c_m
-    phase("quotient h(X)")
-
-    wplans = [M.plan_msm(w_dev) for w_dev in w_devs]
-    c_h = M.auto_c(len(pk.h_query))
-    hplans = [M.plan_msm(h[i], c_h, split_heavy=False) for i in range(len(witnesses))]
-    del h
-    phase(f"MSM plans (c={wplans[0].c}/{c_h}, {sum(len(p.heavy) for p in wplans)} heavy values)")
-    jobs = []
-    for wplan, hplan in zip(wplans, hplans):
-        jobs += [(pk.a_query, wplan, 0), (pk.b1_query, wplan, 0),
-                 (pk.c_query, wplan, pk.n_public + 1), (pk.h_query, hplan, 0)]
-    g1 = M.msm_many(BN254_G1, jobs, bn254.g1_add, bn254.g1_mul)
-    phase("a/b1/c/h G1 MSMs")
-    b2 = M.msm_many(BN254_G2, [(pk.b2_query, wplan, 0) for wplan in wplans], bn254.g2_add,
-                    bn254.g2_mul)
-    phase("b2 G2 MSM")
-    proofs = [_assemble_proof(pk, *g1[4 * i: 4 * i + 4], b2[i], r, s)
-              for i, (r, s) in enumerate(rs)]
-    phase("assembly")
+    with trace.span("prove", root=True):
+        with trace.span("prove.upload"):
+            w_devs = [_upload(w, device) for w in witnesses]
+        phase("witness upload")
+        with trace.span("prove.spmv"):
+            packed = r1cs.pack()
+            evals = [eval_matrices_device(packed, w_dev, pk.domain_size) for w_dev in w_devs]
+        phase("QAP SpMV")
+        with trace.span("prove.quotient"):
+            a_m, b_m, c_m = (spec.to_mont(_stack([e[k] for e in evals])) for k in range(3))
+            del evals
+            if pk.h_basis == "monomial":
+                h = spec.from_mont(quotient(a_m, b_m, c_m))[:, : len(pk.h_query)]
+            elif pk.h_basis == "coset":
+                h = spec.from_mont(coset_qap_evals(a_m, b_m, c_m))
+            else:
+                raise ValueError(f"unknown h_basis {pk.h_basis!r}")
+            del a_m, b_m, c_m
+        phase("quotient h(X)")
+        with trace.span("prove.plans"):
+            wplans = [M.plan_msm(w_dev) for w_dev in w_devs]
+            c_h = M.auto_c(len(pk.h_query))
+            hplans = [M.plan_msm(h[i], c_h, split_heavy=False) for i in range(len(witnesses))]
+            del h
+            heavy = sum(len(p.heavy) for p in wplans)
+        phase(f"MSM plans (c={wplans[0].c}/{c_h}, {heavy} heavy values)")
+        with trace.span("prove.g1_msms"):
+            jobs = []
+            for wplan, hplan in zip(wplans, hplans):
+                jobs += [(pk.a_query, wplan, 0), (pk.b1_query, wplan, 0),
+                         (pk.c_query, wplan, pk.n_public + 1), (pk.h_query, hplan, 0)]
+            g1 = M.msm_many(BN254_G1, jobs, bn254.g1_add, bn254.g1_mul)
+        phase("a/b1/c/h G1 MSMs")
+        with trace.span("prove.g2_msm"):
+            b2 = M.msm_many(BN254_G2, [(pk.b2_query, wplan, 0) for wplan in wplans],
+                            bn254.g2_add, bn254.g2_mul)
+        phase("b2 G2 MSM")
+        with trace.span("prove.assembly"):
+            proofs = [_assemble_proof(pk, *g1[4 * i: 4 * i + 4], b2[i], r, s)
+                      for i, (r, s) in enumerate(rs)]
+        phase("assembly")
     return proofs
 
 
@@ -116,4 +140,4 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: Sequence[int], device,
     s = host._rand_fr(seed, "s") if s is None else s % R
     if pk.a_query.xs.device != torch.device(device):
         pk = pk.to(device)
-    return _prove_device(pk, r1cs, [witness], [(r, s)], device, log or (lambda msg: None))[0]
+    return _prove_device(pk, r1cs, [witness], [(r, s)], device, log)[0]

@@ -50,7 +50,7 @@ from ..ops.fp2 import BN254_G2, g2_jac_to_affine_mont
 from ..ops.group_ntt import lagrange_points
 from ..ops.limbs import BN254_FQ, BN254_FR
 from ..ops.ntt import pow_table
-from ..utils import binfmt, binfmt_torch as BT
+from ..utils import binfmt, binfmt_torch as BT, trace
 from .groth16 import VerifyingKey
 from .setup import (DeviceG1Points, DeviceG2Points, ProvingKey, _domain, _g1_query_device,
                     _g2_query_device)
@@ -72,13 +72,17 @@ def _sync(device) -> None:
 
 @contextmanager
 def _timed(times: Optional[Dict[str, float]], key: str, device):
-    """Adds the seconds of the block (the device synchronized at both
-    ends) to times[key]."""
-    _sync(device)
-    t0 = time.perf_counter()
-    yield
-    _sync(device)
-    if times is not None:
+    """The block as span `key` (`utils/trace.py`); where `times` is given,
+    also adds its seconds, the device synchronized at both ends, to
+    times[key]."""
+    with trace.span(key):
+        if times is None:
+            yield
+            return
+        _sync(device)
+        t0 = time.perf_counter()
+        yield
+        _sync(device)
         times[key] = times.get(key, 0.0) + time.perf_counter() - t0
 
 

@@ -27,16 +27,125 @@ card, the STATS line adds its peak device memory so far
 reading stands), as peak-rss is the host's peak so far; both are kept per
 stage in `Tracer.peaks`. Device time shows up in
 the profiler traces, not the STATS line.
+
+Spans and counters. `span(name)` times a block of the program and
+`count(name, n, site=)` counts work at the place it happens (bytes copied
+to the device, host waits on the card). Both record only while the torch
+profiler runs or inside a `collect()` block; otherwise a call is one flag
+check. A span records its name, host start and end
+(`time.perf_counter_ns`, the clock of `time.perf_counter`), its parent
+span and the id of the root span it lies in (`span(..., root=True)`; the
+prover opens one per `_prove_device` call, so every span and count of one
+prove shares that id). While the profiler runs, a span is also a
+`record_function` range of its name, so its start and end sit on the
+device trace's clock too. Events go to a bounded buffer that `events()`
+returns; `collect()` also hands the block's own events to its caller. A
+`Stage` is a span of its own name. The prover's counters: `h2d_bytes`,
+the bytes of each host array a prove copies to its device, and
+`host_sync`, each place where the host waits on the card (a device value
+read on the host, a call whose output size depends on device data, a
+blocking copy, a synchronize), both by site.
+
+Who reads them. The benchmark (`poa_bench/`) reads the upload's
+conversion spans and both counters in its traced run. An operator reads
+the ranges: `python -m zkpoa_tpu_torch.pipeline.workflow ... --profile`
+writes one chrome trace a stage, and there each prove's phases
+(`prove.upload` ... `prove.assembly`), the upload's parts and the
+ceremony's `_timed` steps (`prover/ptau.py`) name what the host was doing
+in each gap where the card idles. Site `prove.phase` of `host_sync`
+counts the synchronizes a caller's `log` adds (seven a prove), which a
+prove without `log` does not make.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import resource
 import time
-from typing import Dict, Optional
+from collections import deque
+from contextlib import contextmanager, nullcontext
+from typing import Dict, List, Optional
 
 import torch
+
+_profiling = torch._C._autograd._profiler_enabled  # whether torch.profiler records
+EVENTS_MAX = 1 << 16  # events the buffer keeps, the newest
+_events: deque = deque(maxlen=EVENTS_MAX)
+_sinks: List[list] = []  # the event lists of the open collect() blocks
+_open: list = []  # the open spans, innermost last
+_ids = itertools.count(1)
+_OFF = nullcontext()
+
+
+def _emit(event: dict) -> None:
+    _events.append(event)
+    for sink in _sinks:
+        sink.append(event)
+
+
+class _Span:
+    __slots__ = ("name", "root", "id", "parent", "prove", "t0", "_range")
+
+    def __init__(self, name: str, root: bool):
+        self.name, self.root = name, root
+
+    def __enter__(self):
+        outer = _open[-1] if _open else None
+        self.id = next(_ids)
+        self.parent = outer.id if outer else None
+        self.prove = self.id if self.root else (outer.prove if outer else None)
+        self._range = None
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        _open.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = time.perf_counter_ns()
+        _open.remove(self)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        _emit({"kind": "span", "name": self.name, "id": self.id, "parent": self.parent,
+               "prove": self.prove, "t0": self.t0, "t1": t1})
+        return False
+
+
+def span(name: str, root: bool = False):
+    """Context manager timing the block as span `name`; a root span starts
+    a new prove id for everything inside it. A no-op unless recording."""
+    if not (_sinks or _profiling()):
+        return _OFF
+    return _Span(name, root)
+
+
+def count(name: str, n: int = 1, site: Optional[str] = None) -> None:
+    """Adds n to counter `name` at `site`, inside the innermost open span.
+    A no-op unless recording."""
+    if not (_sinks or _profiling()):
+        return
+    outer = _open[-1] if _open else None
+    _emit({"kind": "count", "name": name, "site": site, "n": n, "t": time.perf_counter_ns(),
+           "span": outer.id if outer else None, "prove": outer.prove if outer else None})
+
+
+def events() -> List[dict]:
+    """The buffered span and count events, oldest first."""
+    return list(_events)
+
+
+@contextmanager
+def collect():
+    """Records spans and counts inside the block, profiler or not, and
+    yields the list that receives the block's events."""
+    sink: list = []
+    _sinks.append(sink)
+    try:
+        yield sink
+    finally:
+        del _sinks[next(i for i, s in enumerate(_sinks) if s is sink)]
 
 
 def _rusage():
@@ -106,6 +215,7 @@ class Stage:
         self.tr = tracer
         self.name = name
         self._prof = None
+        self._span = None
 
     def __enter__(self):
         self.t0 = time.time()
@@ -120,11 +230,14 @@ class Stage:
                 acts.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=acts)
             self._prof.__enter__()
+        self._span = span(self.name)
+        self._span.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        self._span.__exit__(exc_type, exc, tb)
         if self._prof is not None:
             self._prof.__exit__(exc_type, exc, tb)
             trace_dir = os.path.join(self.tr.log_dir, "torch_trace")
