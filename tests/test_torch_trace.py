@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 PHASES = ["prove.upload", "prove.spmv", "prove.quotient", "prove.plans", "prove.g1_msms",
           "prove.g2_msm", "prove.assembly"]
 STAGE = "layer1 prove batches [0]"
-UPLOAD = ["prove.upload.reduce", "prove.upload.limbs", "prove.upload.copy"]
+UPLOAD = ["prove.upload.limbs", "prove.upload.copy"]
 LOGGED = ["witness upload", "QAP SpMV", "quotient h(X)", "MSM plans (c=5/5, 0 heavy values)",
           "a/b1/c/h G1 MSMs", "b2 G2 MSM", "assembly"]
 

@@ -7,6 +7,12 @@ by a hash of the sources, and loaded with `ctypes`. Nothing is built when
 a module is imported: CPU-only machines import the whole package and never
 reach this file's `lib()`.
 
+One host routine, `csrc/witness_limbs.c` (a witness's Python ints to limbs,
+through the Python C API), is compiled apart from the kernels with the host
+C compiler against the running interpreter's headers, into
+`libzkpoa_host_<digest>.so` in the same directory, and loaded with
+`ctypes.PyDLL` (`host_lib()`); it builds and runs on CPU-only machines too.
+
 Every launcher in the port counts its launches in `COUNTS` (a plain dict of
 ints): a run can reset the counts, drive the main path and show which
 kernels it went through.
@@ -17,8 +23,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
+import sys
+import sysconfig
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
@@ -33,9 +42,13 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+HOST_SOURCE = os.path.join(CSRC_DIR, "witness_limbs.c")
+HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
+
 COUNTS: Dict[str, int] = {}
 
 _LIB: Optional[ctypes.CDLL] = None
+_HOST_LIB: Optional[ctypes.PyDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 _P = ctypes.c_void_p
@@ -158,6 +171,50 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = handle
     return _LIB
+
+
+def host_digest() -> str:
+    h = hashlib.sha256()
+    with open(HOST_SOURCE, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(sys.implementation.cache_tag.encode())
+    return h.hexdigest()[:16]
+
+
+def _cc() -> list:
+    cc = shlex.split(sysconfig.get_config_var("CC") or "")
+    return cc if cc and shutil.which(cc[0]) else ["cc"]
+
+
+def build_host() -> str:
+    """Compile `HOST_SOURCE` with the host C compiler into a shared library
+    named by `host_digest()`; returns its path. Reuses a library built from
+    the same source, flags and interpreter."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"libzkpoa_host_{host_digest()}.so")
+    if os.path.exists(so_path):
+        return so_path
+    tmp = so_path + f".tmp{os.getpid()}"
+    cmd = [*_cc(), *HOST_FLAGS, "-I", sysconfig.get_paths()["include"], HOST_SOURCE, "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def host_lib() -> ctypes.PyDLL:
+    """The loaded host routine library (built on first call). A `PyDLL`: its
+    calls hold the interpreter lock and raise the Python error they set."""
+    global _HOST_LIB
+    if _HOST_LIB is None:
+        handle = ctypes.PyDLL(build_host())
+        fn = handle.zk_witness_limbs
+        fn.argtypes = [ctypes.py_object, ctypes.c_ssize_t, _P, _P]
+        fn.restype = ctypes.c_ssize_t
+        _HOST_LIB = handle
+    return _HOST_LIB
 
 
 def launch(name: str, counter: Optional[str], *args) -> None:

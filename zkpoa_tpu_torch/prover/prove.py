@@ -15,9 +15,10 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .. import host
+from .. import _build, host
 from ..fields import bn254
 from ..fields.bn254 import R
 from ..models.r1cs import R1CS
@@ -42,12 +43,30 @@ def _stack(rows):
     return rows[0].unsqueeze(0) if len(rows) == 1 else torch.stack(rows)
 
 
+def witness_limbs(witness: Sequence[int]) -> Tuple[np.ndarray, int]:
+    """The values `int(x) % R` of a witness as plain limbs [n, 8] int32 (the
+    u32 bit pattern), equal to `host.scalars_to_limbs_fast([int(x) % R for x
+    in witness])` for every input, and the number of values that took the
+    Python fallback. One native pass (`csrc/witness_limbs.c`) converts each
+    exact int in [0, R); every other item is converted here, by the rule
+    above, and put in its row."""
+    n = len(witness)
+    limbs = np.empty((n, host.N_LIMBS), dtype=np.int32)
+    miss = np.empty(n, dtype=np.int64)
+    n_miss = _build.host_lib().zk_witness_limbs(witness, n, limbs.ctypes.data,
+                                                miss.ctypes.data)
+    if n_miss:
+        rows = miss[:n_miss]
+        limbs[rows] = host.scalars_to_limbs_fast([int(witness[i]) % R for i in rows.tolist()])
+    return limbs, n_miss
+
+
 def _upload(witness: Sequence[int], device) -> torch.Tensor:
     """A witness as plain limbs [n, 8] on the device."""
-    with trace.span("prove.upload.reduce"):
-        values = [int(x) % R for x in witness]
     with trace.span("prove.upload.limbs"):
-        limbs = host.scalars_to_limbs_fast(values)
+        limbs, n_miss = witness_limbs(witness)
+        if n_miss:
+            trace.count("convert_fallback", n_miss, site="witness")
     with trace.span("prove.upload.copy"):
         trace.count("h2d_bytes", limbs.nbytes, site="witness")
         trace.count("host_sync", site="witness")  # a pageable copy waits on the stream
