@@ -523,8 +523,9 @@ def test_msm_many_heavy_sums_on_card(card, curve):
     """msm_many with two heavy values over two tables (one at a prefix
     pad): one Horner launch, at most two fold launches, one launch of the
     rounds kernel for the group and none of the elementwise B2, one copy
-    to the host; the totals equal the host MSMs and the heavy sums equal
-    the CPU's."""
+    to the host, then in the span `prove.msm.host` one counted host
+    multiplication a table for the value 7 (none for 1); the totals equal
+    the host MSMs and the heavy sums equal the CPU's."""
     base, add, mul = _group(curve)
     n, pad = 600, 40
     table, pts = _table(curve, base, add, mul, n, 70)
@@ -544,8 +545,9 @@ def test_msm_many_heavy_sums_on_card(card, curve):
     assert _build.COUNTS[f"heavy_rounds_g{g}"] == 1  # every segment of the group in one launch
     assert f"point_add_affine_g{g}" not in _build.COUNTS
     assert f"point_add_g{g}" not in _build.COUNTS and f"point_double_g{g}" not in _build.COUNTS
-    assert [(e["name"], e["site"], e["n"]) for e in events] == \
-        [("host_sync", f"msm_decode_g{g}", 1)]
+    assert [(e["name"], e["site"], e["n"]) for e in events if e["kind"] == "count"] == \
+        [("host_sync", f"msm_decode_g{g}", 1)] + [("host_mul", f"heavy_g{g}", 1)] * 2
+    assert [e["name"] for e in events if e["kind"] == "span"] == ["prove.msm.host"]
     for k, off in enumerate((0, pad)):
         want = None
         for i, s in enumerate(scal):

@@ -24,6 +24,7 @@ PHASES = ["prove.upload", "prove.spmv", "prove.quotient", "prove.plans", "prove.
           "prove.g2_msm", "prove.assembly"]
 STAGE = "layer1 prove batches [0]"
 UPLOAD = ["prove.upload.limbs", "prove.upload.copy"]
+MSM_HOST = "prove.msm.host"
 LOGGED = ["witness upload", "QAP SpMV", "quotient h(X)", "MSM plans (c=5/5, 0 heavy values)",
           "a/b1/c/h G1 MSMs", "b2 G2 MSM", "assembly"]
 
@@ -170,13 +171,17 @@ def test_a_prove_records_its_phase_and_upload_spans_in_order(proves):
     found = sorted(spans(proves["events"]), key=lambda e: e["t0"])
     root = found[0]
     assert root["name"] == "prove" and root["id"] == root["prove"]
-    assert [e["name"] for e in found[1:]] == PHASES[:1] + UPLOAD + PHASES[1:]
+    assert [e["name"] for e in found[1:]] == \
+        PHASES[:1] + UPLOAD + PHASES[1:5] + [MSM_HOST, PHASES[5], MSM_HOST, PHASES[6]]
     assert all(e["prove"] == root["id"] for e in proves["events"])
     by_name = {e["name"]: e for e in found}
     for name in PHASES:
         assert by_name[name]["parent"] == root["id"]
     for name in UPLOAD:
         assert by_name[name]["parent"] == by_name["prove.upload"]["id"]
+    g1_host, g2_host = spans(proves["events"], MSM_HOST)
+    assert g1_host["parent"] == by_name["prove.g1_msms"]["id"]
+    assert g2_host["parent"] == by_name["prove.g2_msm"]["id"]
     assert all(a["t1"] <= b["t0"] for a, b in zip(found[1:], found[2:]) if a["name"] in PHASES
                and b["name"] in PHASES)
     for name in ["prove"] + PHASES + UPLOAD:
@@ -224,6 +229,85 @@ def test_a_profiled_workflow_stage_names_the_prove_phases_in_its_trace(proves):
     assert root["parent"] == proves["stage"]["id"] and proves["stage"]["prove"] is None
     for name in [STAGE, "prove"] + PHASES + UPLOAD:
         assert name in proves["ranges"], name
+
+
+def _heavy_circuit():
+    """Values 0, 1, 5 and 7 on 20 wires each, every wire x in A and B of
+    x (x - v) = 0, and a public product: a witness with heavy values."""
+    c = r1cs.Circuit()
+    out = c.public_output()
+    for v in (0, 1, 5, 7):
+        for _ in range(20):
+            x = c.var(v)
+            c.constrain(x, x - v, 0)
+    c.bind_output(out, c.mul(c.var(3), c.var(11)))
+    return c.compile()
+
+
+def _without_new_tracing(mp):
+    """Turns off the host span of `msm_many` and the `host_mul` counts."""
+    span, count = trace.span, trace.count
+    mp.setattr(trace, "span", lambda name, root=False: trace._OFF if name == MSM_HOST
+               else span(name, root))
+    mp.setattr(trace, "count", lambda name, n=1, site=None: None if name == "host_mul"
+               else count(name, n, site))
+
+
+@pytest.fixture(scope="module")
+def heavy_proves():
+    """One witness with heavy values (HEAVY_COUNT_MIN cut to 16) proved
+    three times with one (r, s): without recording, under collect(), and
+    under collect() with the host span and host_mul counts turned off."""
+    system, witness = _heavy_circuit()
+    out = {"witness": witness}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(M, "HEAVY_COUNT_MIN", 16)
+        key = setup_device(system, "cpu", seed="trace-heavy")
+        out["off"] = P.prove(key, system, witness, "cpu", r=5, s=6)
+        with trace.collect() as events:
+            out["on"] = P.prove(key, system, witness, "cpu", r=5, s=6)
+        out["events"] = events
+        with pytest.MonkeyPatch.context() as inner:
+            _without_new_tracing(inner)
+            with trace.collect() as events:
+                out["untraced"] = P.prove(key, system, witness, "cpu", r=5, s=6)
+        out["untraced_events"] = events
+    return out
+
+
+def test_host_muls_are_counted_by_site(heavy_proves):
+    """Five G1 and one G2 multiplications in the assembly; three G1 (the
+    a, b1 and c queries) and one G2 (b2) for each heavy value other than 1."""
+    values = {}
+    for x in heavy_proves["witness"]:
+        values[int(x)] = values.get(int(x), 0) + 1
+    heavy = [v for v, n in values.items() if n >= 16 and v not in (0, 1)]
+    assert sorted(heavy) == [5, 7] and values[1] >= 16
+    assert counts(heavy_proves["events"], "host_mul") == {
+        "heavy_g1": 3 * len(heavy), "heavy_g2": len(heavy), "assembly_g1": 5, "assembly_g2": 1}
+
+
+def test_msm_host_spans_lie_inside_the_prove(heavy_proves):
+    events = heavy_proves["events"]
+    root, = spans(events, "prove")
+    host = spans(events, MSM_HOST)
+    parents = {e["id"]: e["name"] for e in spans(events)}
+    assert [parents[e["parent"]] for e in host] == ["prove.g1_msms", "prove.g2_msm"]
+    assert all(e["prove"] == root["id"] and root["t0"] <= e["t0"] <= e["t1"] <= root["t1"]
+               for e in host)
+    muls = [e for e in events if e["kind"] == "count" and e["name"] == "host_mul"]
+    by_id = {e["id"]: e for e in host}
+    assert all(by_id[e["span"]]["name"] == MSM_HOST for e in muls if e["site"].startswith("heavy"))
+
+
+def test_host_tracing_adds_no_wait_and_keeps_the_proof(heavy_proves):
+    on, off, untraced = heavy_proves["on"], heavy_proves["off"], heavy_proves["untraced"]
+    assert (on.pi_a, on.pi_b, on.pi_c) == (off.pi_a, off.pi_b, off.pi_c) \
+        == (untraced.pi_a, untraced.pi_b, untraced.pi_c)
+    plain = heavy_proves["untraced_events"]
+    assert not spans(plain, MSM_HOST) and not counts(plain, "host_mul")
+    assert counts(heavy_proves["events"], "host_sync") == counts(plain, "host_sync")
+    assert counts(plain, "host_sync")["plan.heavy_rows"] == 3 * 4  # values 0, 1, 5 and 7
 
 
 def _limbs(values):

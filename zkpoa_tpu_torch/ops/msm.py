@@ -743,13 +743,16 @@ def msm_many(curve, jobs, host_add, host_mul) -> List:
     trace.count("host_sync", site=f"msm_decode_g{curve.group}")
     pts = curve.decode_jac(tuple(torch.cat([p[k] for p in parts]) for k in range(3)))
     out: List = [None] * len(jobs)
-    for (i, val), s in zip(owners, pts):
-        if s is not None:
-            contrib = s if val == 1 else host_mul(s, val)
-            out[i] = contrib if out[i] is None else host_add(out[i], contrib)
-    for i, pt in zip(dest, pts[len(owners):]):
-        if pt is not None:
-            out[i] = pt if out[i] is None else host_add(out[i], pt)
+    with trace.span("prove.msm.host"):
+        for (i, val), s in zip(owners, pts):
+            if s is not None:
+                if val != 1:
+                    trace.count("host_mul", site=f"heavy_g{curve.group}")
+                    s = host_mul(s, val)
+                out[i] = s if out[i] is None else host_add(out[i], s)
+        for i, pt in zip(dest, pts[len(owners):]):
+            if pt is not None:
+                out[i] = pt if out[i] is None else host_add(out[i], pt)
     return out
 
 

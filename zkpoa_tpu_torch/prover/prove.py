@@ -138,6 +138,8 @@ def _prove_device(pk: ProvingKey, r1cs: R1CS, witnesses: Sequence[Sequence[int]]
 
 
 def _assemble_proof(pk, a_acc, b1_acc, c_acc, h_acc, b2_acc, r, s) -> Proof:
+    trace.count("host_mul", 5, site="assembly_g1")  # delta1 r, delta1 s, pi_a s, pi_b1 r, delta1 rs
+    trace.count("host_mul", site="assembly_g2")  # delta2 s
     g1 = bn254
     pi_a = g1.g1_add(g1.g1_add(pk.alpha1, a_acc), g1.g1_mul(pk.delta1, r))
     pi_b1 = g1.g1_add(g1.g1_add(pk.beta1, b1_acc), g1.g1_mul(pk.delta1, s))
