@@ -630,6 +630,38 @@ def test_host_syncs_of_a_prove_are_what_sync_debug_reports(layer_one):
     assert _seen(counted) == sum(reported.values()), (counted, reported)
 
 
+def test_a_prove_on_the_card_copies_its_witness_alone(layer_one):
+    """After the fixture's setup and first prove, the SpMV operands live on
+    the card with the packed system as int32 tensors and a prove copies
+    only its witness. Its SpMV gives the CPU's evaluations of the same
+    witness limb for limb, and its proof verifies (a whole CPU prove of
+    layer one runs for over fifteen minutes)."""
+    from zkpoa_tpu_torch.ops.qap_eval import eval_matrices_device
+    from zkpoa_tpu_torch.prover.prove import witness_limbs
+
+    key, system, witness = layer_one
+    with trace.collect() as events:
+        proof = prove(key, system, witness, "cuda", r=7, s=8)
+    counted = {}
+    for e in events:
+        if e["kind"] == "count" and e["name"] in ("h2d_bytes", "spmv_operands"):
+            counted[e["name"], e["site"]] = counted.get((e["name"], e["site"]), 0) + e["n"]
+    assert counted == {("h2d_bytes", "witness"): 32 * len(witness), ("spmv_operands", "hit"): 1}
+    packed = system.pack()
+    assert [d.type for d in packed._spmv_operands] == ["cuda"]
+    (mats, pool), = packed._spmv_operands.values()
+    for t in (t for mat in mats for t in mat):
+        assert t.is_cuda and t.dtype == torch.int32
+    assert pool.is_cuda
+    limbs = torch.from_numpy(witness_limbs(witness)[0])
+    on_card = eval_matrices_device(packed, limbs.cuda(), key.domain_size)
+    on_cpu = eval_matrices_device(packed, limbs, key.domain_size)
+    for got, want in zip(on_card, on_cpu):
+        assert torch.equal(got.cpu(), want)
+    vk = groth16.VerifyingKey.from_json(key.vk_json)
+    assert groth16.verify(vk, proof, [witness[w] for w in range(1, system.n_public + 1)])
+
+
 def test_host_syncs_of_a_plan_without_heavy_values_are_what_sync_debug_reports(card):
     """A plan whose scalars repeat no value: the heavy-value search waits
     once (its empty copy to the host does not wait)."""

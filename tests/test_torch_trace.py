@@ -136,14 +136,16 @@ def _circuit():
 
 @pytest.fixture(scope="module")
 def proves(tmp_path_factory):
-    """Two proves of one witness with the SpMV cut into chunks of 8 rows
-    and `_sync` recording its calls: the first without `log` under
-    collect(), inside a workflow stage that writes its profiler trace (as
-    `workflow --profile` does), the second under collect() with `log`."""
+    """A setup under collect(), then two proves of one witness with the
+    SpMV cut into chunks of 8 rows and `_sync` recording its calls: the
+    first without `log` under collect(), inside a workflow stage that
+    writes its profiler trace (as `workflow --profile` does), the second
+    under collect() with `log`."""
     system, witness = _circuit()
-    key = setup_device(system, "cpu", seed="trace-test")
+    with trace.collect() as setup_events:
+        key = setup_device(system, "cpu", seed="trace-test")
     logs = tmp_path_factory.mktemp("trace")
-    out = {"system": system, "witness": witness, "key": key}
+    out = {"system": system, "witness": witness, "key": key, "setup_events": setup_events}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(qap_eval, "CHUNK_ROWS", 8)
         synced = []
@@ -189,17 +191,23 @@ def test_a_prove_records_its_phase_and_upload_spans_in_order(proves):
 
 
 def test_h2d_bytes_are_the_arrays_the_prove_copies(proves):
+    """A prove copies its witness alone: the setup before it put the SpMV
+    operands (int32 index arrays, the pool) on the device once, and each
+    prove's evaluation finds them there."""
     packed = proves["system"].pack()
-    index = sum(torch.from_numpy(a[off: off + 8]).to(torch.int64).nbytes
-                for m in (packed.a, packed.b, packed.c) for a in (m.idx, m.wire, m.cid)
-                for off in range(0, len(a), 8))
-    want = {"witness": host.scalars_to_limbs_fast(proves["witness"]).nbytes,
-            "spmv_index": index, "spmv_pool": packed.pool_limbs.nbytes}
+    operands = packed.pool_limbs.nbytes + sum(
+        a.nbytes for m in (packed.a, packed.b, packed.c) for a in (m.idx, m.wire, m.cid))
+    setup = proves["setup_events"]
+    assert counts(setup, "h2d_bytes") == {"spmv_operands": operands}
+    assert counts(setup, "host_sync") == {"spmv_operands": 10}
+    assert counts(setup, "spmv_operands") == {"fill": 1}
+    want = {"witness": host.scalars_to_limbs_fast(proves["witness"]).nbytes}
     assert counts(proves["events"], "h2d_bytes") == want
     assert counts(proves["logged_events"], "h2d_bytes") == want
-    chunks = sum(-(-len(m.idx) // 8) for m in (packed.a, packed.b, packed.c))
+    for events in (proves["events"], proves["logged_events"]):
+        assert counts(events, "spmv_operands") == {"hit": 1}
     syncs = counts(proves["events"], "host_sync")
-    assert syncs["spmv_index"] == 3 * chunks and syncs["spmv_pool"] == 1
+    assert not any(site.startswith("spmv") for site in syncs)
     assert syncs["witness"] == 1 and syncs["msm_decode_g1"] == syncs["msm_decode_g2"] == 1
     assert all(n > 0 for n in syncs.values())
 

@@ -10,6 +10,11 @@ with `index_add_` into int64 sums of their 16-bit halves: a half is below
 fan-in, including the constant wire, which meets more than 2^16 rows in
 every real circuit (the JAX package needs its `_spmv_safe` path for that).
 One carry normalisation and a modular reduction finish each output.
+
+A system's operands, the int32 index arrays of its three matrices and its
+coefficient pool, go to a device once, at its first evaluation there, and
+stay with the packed system (`_operands`): setup fills them, and every
+prove after it copies only its witness. The chunks slice those tensors.
 """
 
 from __future__ import annotations
@@ -50,33 +55,42 @@ def _reduce_sums(acc: torch.Tensor) -> torch.Tensor:
     return L.add_mod(spec, lo_mod, hi_mod)
 
 
-def _index(rows: np.ndarray, device) -> torch.Tensor:
-    """A chunk of packed int32 indices as int64 on the device. The copy
-    widens on the host, so it moves 8 bytes an entry, every call."""
-    trace.count("h2d_bytes", 8 * len(rows), site="spmv_index")
-    trace.count("host_sync", site="spmv_index")
-    return torch.from_numpy(rows).to(device, torch.int64)
+def _copy(a: np.ndarray, device) -> torch.Tensor:
+    """One host array on the device, as it is (int32 indices stay 4 bytes
+    an entry)."""
+    trace.count("h2d_bytes", a.nbytes, site="spmv_operands")
+    trace.count("host_sync", site="spmv_operands")  # a pageable copy waits on the stream
+    return torch.from_numpy(a).to(device)
 
 
-def _pool(packed, device) -> torch.Tensor:
-    """The coefficient pool in Montgomery form on the device."""
-    trace.count("h2d_bytes", packed.pool_limbs.nbytes, site="spmv_pool")
-    trace.count("host_sync", site="spmv_pool")
-    return BN254_FR.to_mont(torch.from_numpy(packed.pool_limbs).to(device))
+def _operands(packed, device: torch.device):
+    """The SpMV operands of a packed system on `device`: each matrix's
+    (idx, wire, cid) as int32 tensors and the coefficient pool in
+    Montgomery form. Copied at a system's first evaluation on a device and
+    kept in the system's own `_spmv_operands` (keyed by device), so they
+    are freed with it; every later evaluation, setup's and each prove's,
+    takes them from there."""
+    cache = packed.__dict__.setdefault("_spmv_operands", {})
+    ops = cache.get(device)
+    trace.count("spmv_operands", site="hit" if ops is not None else "fill")
+    if ops is None:
+        mats = tuple(tuple(_copy(a, device) for a in (m.idx, m.wire, m.cid))
+                     for m in (packed.a, packed.b, packed.c))
+        ops = cache[device] = (mats, BN254_FR.to_mont(_copy(packed.pool_limbs, device)))
+    return ops
 
 
-def spmv(scatter: np.ndarray, gather: np.ndarray, cid: np.ndarray,
+def spmv(scatter: torch.Tensor, gather: torch.Tensor, cid: torch.Tensor,
          pool_mont: torch.Tensor, vec: torch.Tensor, out_size: int) -> torch.Tensor:
-    """out[scatter] += pool[cid] * vec[gather] over packed int32 rows; plain
-    limbs out [out_size, 8]. Serves both directions (prover: scatter =
-    constraint, gather = wire; setup: scatter = wire, gather = constraint)."""
-    device = vec.device
-    acc = torch.zeros((out_size, 16), dtype=torch.int64, device=device)
+    """out[scatter] += pool[cid] * vec[gather] over int32 rows on vec's
+    device; plain limbs out [out_size, 8]. Serves both directions (prover:
+    scatter = constraint, gather = wire; setup: scatter = wire, gather =
+    constraint)."""
+    acc = torch.zeros((out_size, 16), dtype=torch.int64, device=vec.device)
     for off in range(0, len(scatter), CHUNK_ROWS):
         sl = slice(off, off + CHUNK_ROWS)
-        idx, g, c = (_index(a[sl], device) for a in (scatter, gather, cid))
-        prod = L.mont_mul(BN254_FR, pool_mont[c], vec[g])
-        acc.index_add_(0, idx, L._split16(L.u32(prod)))
+        prod = L.mont_mul(BN254_FR, pool_mont[cid[sl]], vec[gather[sl]])
+        acc.index_add_(0, scatter[sl], L._split16(L.u32(prod)))
     return _reduce_sums(acc)
 
 
@@ -84,12 +98,9 @@ def eval_at_tau_device(packed, lag_plain: torch.Tensor, n_wires: int):
     """Setup-side transposed SpMV: per-wire A_k(tau), B_k(tau), C_k(tau)
     from the Lagrange values lag_plain [m, 8]; three [n_wires, 8] plain
     tensors (port of `qap_eval.py:141`)."""
-    device = lag_plain.device
-    pool_mont = _pool(packed, device)
-    return tuple(
-        spmv(mat.wire, mat.idx, mat.cid, pool_mont, lag_plain, n_wires)
-        for mat in (packed.a, packed.b, packed.c)
-    )
+    mats, pool_mont = _operands(packed, lag_plain.device)
+    return tuple(spmv(wire, idx, cid, pool_mont, lag_plain, n_wires)
+                 for idx, wire, cid in mats)
 
 
 def _ab_pointwise(a_ev: torch.Tensor, b_ev: torch.Tensor) -> torch.Tensor:
@@ -104,10 +115,9 @@ def eval_matrices_device(packed, witness: torch.Tensor,
     """Packed R1CS + plain witness limbs [n_wires, 8] on a device ->
     (a, b, c) plain [domain, 8], zero beyond n_constraints (port of
     `qap_eval.py:163`)."""
-    device = witness.device
-    pool_mont = _pool(packed, device)
-    ev = lambda m: spmv(m.idx, m.wire, m.cid, pool_mont, witness, domain_size)  # noqa: E731
-    a_ev, b_ev = ev(packed.a), ev(packed.b)
-    if len(packed.c.idx) == 0 and packed.n_constraints:
+    (a, b, c), pool_mont = _operands(packed, witness.device)
+    ev = lambda m: spmv(*m, pool_mont, witness, domain_size)  # noqa: E731
+    a_ev, b_ev = ev(a), ev(b)
+    if len(c[0]) == 0 and packed.n_constraints:
         return a_ev, b_ev, _ab_pointwise(a_ev, b_ev)
-    return a_ev, b_ev, ev(packed.c)
+    return a_ev, b_ev, ev(c)

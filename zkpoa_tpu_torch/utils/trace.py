@@ -44,15 +44,18 @@ returns; `collect()` also hands the block's own events to its caller. A
 the bytes of each host array a prove copies to its device;
 `host_sync`, each place where the host waits on the card (a device value
 read on the host, a call whose output size depends on device data, a
-blocking copy, a synchronize); and `host_mul`, each scalar multiplication
+blocking copy, a synchronize); `host_mul`, each scalar multiplication
 of a point in Python on the host (`heavy_g1` / `heavy_g2`: a heavy value
 other than 1 in `ops/msm.py` `msm_many`, whose host combination is the
 span `prove.msm.host`; `assembly_g1` / `assembly_g2`: the proof's
-assembly), all by site.
+assembly); and `spmv_operands`, each SpMV evaluation (`ops/qap_eval.py`),
+at site `fill` where it copied a system's operands to its device (those
+copies are the `h2d_bytes` and `host_sync` of site `spmv_operands`) and
+`hit` where it found them there, all by site.
 
 Who reads them. The benchmark (`poa_bench/`) reads the upload's
-conversion spans, `prove.msm.host` and the three counters in its traced
-run. An operator reads
+conversion spans, `prove.msm.host` and the first three counters in its
+traced run (`spmv_operands` is read by the tests alone). An operator reads
 the ranges: `python -m zkpoa_tpu_torch.pipeline.workflow ... --profile`
 writes one chrome trace a stage, and there each prove's phases
 (`prove.upload` ... `prove.assembly`), the upload's parts and the
