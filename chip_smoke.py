@@ -618,14 +618,14 @@ def mont_latency(torch, checks, gen) -> float:
     return ms / steps
 
 
-def fixed_base_b2_loop(ops, base, host_add, scalars, n_bits):
+def fixed_base_b2_loop(ops, base, scalars, n_bits):
     """The B2-loop route of fixed-base multiplication on the card (setup's
     route before B8), kept here as a yardstick for B8: one gather and one
     B2 launch per 8-bit window."""
     from zkpoa_tpu_torch.ops import limbs as L
     from zkpoa_tpu_torch.ops.curve import FB_WINDOW, fixed_base_device_table
 
-    xs_t, ys_t, valid_t = fixed_base_device_table(ops, base, host_add, n_bits, scalars.device)
+    xs_t, ys_t, valid_t = fixed_base_device_table(ops, base, n_bits, scalars.device)
     sc = L.u32(scalars)
     acc = ops.infinity((scalars.shape[0],), scalars.device)
     for j in range((n_bits + FB_WINDOW - 1) // FB_WINDOW):
@@ -653,15 +653,13 @@ def check_fixed_base(torch, checks):
     edge = [0, 1, r - 1, r, 1 << 248, int("15" * 32, 16), 98 * (1 << 248) - r]
     rng = np.random.default_rng(1)
     out = {}
-    for curve, base, add, mul, log_n in ((BN254_G1, bn254.G1_GEN, bn254.g1_add, bn254.g1_mul, 16),
-                                         (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 14),
-                                         (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 16)):
-        n, g = 1 << log_n, curve.group
+    for curve, log_n in ((BN254_G1, 16), (BN254_G2, 14), (BN254_G2, 16)):
+        n, g, base = 1 << log_n, curve.group, curve.generator
         name = f"fixed_base_g{g}" + ("[2^16]" if (g, log_n) == (2, 16) else "")
         scal = edge + [int.from_bytes(rng.bytes(32), "big") % r for _ in range(n - len(edge))]
         sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
-        tab = fixed_base_device_table(curve, base, add, 254, sc.device)
-        kern = lambda: fixed_base_mul_batch(curve, base, add, sc, 254)  # noqa: E731
+        tab = fixed_base_device_table(curve, base, 254, sc.device)
+        kern = lambda: fixed_base_mul_batch(curve, base, sc, 254)  # noqa: E731
         plain = lambda: fixed_base_plain(curve, *tab, sc, 254)  # noqa: E731
         got = kern()
         nwin = (254 + FB_WINDOW - 1) // FB_WINDOW
@@ -672,9 +670,9 @@ def check_fixed_base(torch, checks):
         checks.record(name, got, plain(), kern, plain, work, reps=5)
         pick = list(range(len(edge))) + [len(edge), n - 1]
         dec = curve.decode_jac(tuple(t[pick] for t in got))
-        if dec != [mul(base, scal[i]) for i in pick]:
+        if dec != [curve.host_mul(base, scal[i]) for i in pick]:
             fail(f"{name} disagrees with host scalar multiplication")
-        b2 = time_ms(torch, lambda: fixed_base_b2_loop(curve, base, add, sc, 254), 3)
+        b2 = time_ms(torch, lambda: fixed_base_b2_loop(curve, base, sc, 254), 3)
         out[f"g{g}_2^{log_n}"] = {"n": n, "b8_ms": checks.rows[name]["ms"], "b2_loop_ms": b2}
         log(f"fixed_base_g{g} at 2^{log_n}: host decode of {len(pick)} points exact; "
             f"B2-loop route {b2:.3f} ms")
@@ -806,12 +804,11 @@ def check_prove_rounds(torch, checks, pk, witness, label="prove"):
     them to `msm_many`; against its plain version, with the bound from the
     entries these segments add."""
     from zkpoa_tpu_torch import host
-    from zkpoa_tpu_torch.fields.bn254 import R
     from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.ops.curve import BN254_G1
     from zkpoa_tpu_torch.ops.fp2 import BN254_G2
 
-    w = torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in witness])).to("cuda")
+    w = torch.from_numpy(host.witness_limbs(witness)[0]).to("cuda")
     heavy, _mask = M._heavy_split(w)
     pads = ((pk.a_query, 0), (pk.b1_query, 0), (pk.c_query, pk.n_public + 1))
     out = {"heavy_counts": [int(sel.shape[0]) for _v, sel in heavy]}
@@ -854,13 +851,13 @@ def check_prove_accum(torch, checks, gen, pk, witness, label):
     h-query's rows at the h MSM's window, with the h-query; each against its
     plain version, run once and timed by that run."""
     from zkpoa_tpu_torch import host
-    from zkpoa_tpu_torch.fields.bn254 import R
+    from zkpoa_tpu_torch.experiments.msm_stages import most_pieces
     from zkpoa_tpu_torch.ops import limbs as L
     from zkpoa_tpu_torch.ops import msm as M
     from zkpoa_tpu_torch.ops.curve import BN254_G1
     from zkpoa_tpu_torch.ops.fp2 import BN254_G2
 
-    w = torch.from_numpy(host.scalars_to_limbs_fast([int(x) % R for x in witness])).to("cuda")
+    w = torch.from_numpy(host.witness_limbs(witness)[0]).to("cuda")
     n_h = len(pk.h_query)
     h = rand_field(torch, L.BN254_FR, n_h, gen)
     out = {}
@@ -877,10 +874,10 @@ def check_prove_accum(torch, checks, gen, pk, witness, label):
         checks.record(name, got, want, kern, plain, accum_work(plan, table.xs.shape[0], g),
                       reps=3, plain_ms=plain_ms)
         out[f"g{g}"] = {"scalars": plan.n, "c": plan.c, "pieces": plan.n_pieces,
-                        "max_pieces": plan.max_pieces, "combine_depth": plan.combine_depth,
+                        "max_pieces": most_pieces(plan), "combine_depth": plan.combine_depth,
                         **checks.rows[name]}
         log(f"{name}: {plan.n} scalars, c = {plan.c}, {plan.n_pieces} pieces, at most "
-            f"{plan.max_pieces} a bucket, combine depth {plan.combine_depth}")
+            f"{most_pieces(plan)} a bucket, combine depth {plan.combine_depth}")
         del got, want, plan
     return out
 
@@ -889,7 +886,7 @@ def check_msm(torch, checks, gen):
     import numpy as np
 
     from zkpoa_tpu_torch import host
-    from zkpoa_tpu_torch.experiments.msm_stages import fixed_base_points
+    from zkpoa_tpu_torch.experiments.msm_stages import fixed_base_points, most_pieces
     from zkpoa_tpu_torch.fields import bn254
     from zkpoa_tpu_torch.ops import limbs as L
     from zkpoa_tpu_torch.ops import msm as M
@@ -898,14 +895,11 @@ def check_msm(torch, checks, gen):
 
     rng = np.random.default_rng(0)
     c = M.auto_c(LAYER_ONE_WIRES)  # the window size of every MSM of the main path
-    for curve, base, add, mul, log_n in (
-        (BN254_G1, bn254.G1_GEN, bn254.g1_add, bn254.g1_mul, 16),
-        (BN254_G2, bn254.G2_GEN, bn254.g2_add, bn254.g2_mul, 14),
-    ):
+    for curve, log_n in ((BN254_G1, 16), (BN254_G2, 14)):
         n = 1 << log_n
         g = curve.group
         gens = [int(x) for x in rng.integers(1, 2**63, size=n, dtype=np.uint64)]
-        table = fixed_base_points(curve, base, add, gens, "cuda")
+        table = fixed_base_points(curve, gens, "cuda")
         scal = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
         sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
         plan = M.plan_msm(sc, c, split_heavy=False)
@@ -918,7 +912,7 @@ def check_msm(torch, checks, gen):
         checks.record(f"msm_accum_g{g}", buckets, acc_plain(), acc, acc_plain,
                       accum_work(plan, n, g), reps=3)
         log(f"msm_accum_g{g} at 2^{log_n}: {plan.n_pieces} pieces of at most {plan.piece} "
-            f"entries, at most {plan.max_pieces} a bucket; combine {len(plan.combine)} levels, "
+            f"entries, at most {most_pieces(plan)} a bucket; combine {len(plan.combine)} levels, "
             f"depth {plan.combine_depth} full adds")
         # B7 as the main path calls it: G1 over the four G1 MSMs of a prove
         # (4 x 24 windows in one launch), G2 over the one G2 MSM
@@ -965,8 +959,8 @@ def check_msm(torch, checks, gen):
                        n_seg * (width - 1) * PRODUCTS["add"][g] * MONT_OPS), reps=5,
                       chain=CHAIN["add"] * (width.bit_length() - 1))
         del lanes_f, xs_f, idx
-        got = M.msm_shared(curve, table, plan, add, mul)
-        want = mul(base, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
+        got = M.msm_many(curve, [(table, plan, 0)])[0]
+        want = curve.host_mul(curve.generator, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
         if got != want:
             fail(f"G{g} MSM at 2^{log_n} is wrong")
         log(f"G{g} MSM at 2^{log_n} (c={c}: {plan.nw} windows of {plan.nb} buckets): exact")
@@ -1158,13 +1152,6 @@ CONTRIBUTE, BEACON = "chip-smoke contribution", "0xbeac0n"
 PATH_SAMPLE = 1 << 12  # lanes of a path-shape launch held against the plain version
 
 
-def _affine_rows(curve, p):
-    from zkpoa_tpu_torch.ops.curve import BN254_G1, jac_to_affine_mont
-    from zkpoa_tpu_torch.ops.fp2 import g2_jac_to_affine_mont
-
-    return jac_to_affine_mont(curve.field, p) if curve is BN254_G1 else g2_jac_to_affine_mont(p)
-
-
 def ceremony_file(torch, path):
     """Step 1: the power-21 dev ceremony written, read and verified."""
     from zkpoa_tpu_torch.prover import ptau as P
@@ -1197,23 +1184,22 @@ def check_lagrange(torch, pt):
     from zkpoa_tpu_torch.ops.fp2 import BN254_G2
     from zkpoa_tpu_torch.ops.limbs import BN254_FR
     from zkpoa_tpu_torch.prover import ptau as P
-    from zkpoa_tpu_torch.prover.setup import (_g1_query_device, _g2_query_device,
-                                              _lagrange_at_tau_device)
+    from zkpoa_tpu_torch.prover.setup import _lagrange_at_tau_device, _query_device
 
     m = 1 << CEREMONY_POWER
     tau = P._hash_to_fr(CEREMONY_SEED, "tau")
     got, ms = once_ms(torch, lambda: P.lagrange_g1(pt["tau_g1"], m))
-    got = _affine_rows(BN254_G1, got)
+    got = BN254_G1.to_affine(got)
     lag, _z = _lagrange_at_tau_device(m, tau, "cuda")
     lag = BN254_FR.from_mont(lag)
-    want = _g1_query_device(lag)
+    want = _query_device(BN254_G1, lag)
     for a, b in zip(got, (want.xs, want.ys, want.valid)):
         if not torch.equal(a, b):
             fail("lagrange_g1 at 2^21 differs from L_i(tau) G1")
     del got, want
     got2, ms2 = once_ms(torch, lambda: P._lagrange_g2(pt["tau_g2"], m))
-    got2 = _affine_rows(BN254_G2, got2)
-    want2 = _g2_query_device(lag)
+    got2 = BN254_G2.to_affine(got2)
+    want2 = _query_device(BN254_G2, lag)
     for a, b in zip(got2, (want2.xs, want2.ys, want2.valid)):
         if not torch.equal(a, b):
             fail("_lagrange_g2 at 2^21 differs from L_i(tau) G2")
@@ -1401,7 +1387,6 @@ def check_ladders(torch, checks, ptau_path, r1cs):
     import numpy as np
 
     from zkpoa_tpu_torch import host
-    from zkpoa_tpu_torch.fields import bn254
     from zkpoa_tpu_torch.fields.bn254 import R
     from zkpoa_tpu_torch.ops import field_kernels as FK
     from zkpoa_tpu_torch.ops import limbs as L
@@ -1433,13 +1418,13 @@ def check_ladders(torch, checks, ptau_path, r1cs):
 
     out = {}
     groups = (
-        (BN254_G1, bn254.G1_GEN, bn254.g1_add, 16,
+        (BN254_G1, 16,
          [P._jac(BN254_G1, pt[k]) for k in ("tau_g1", "alpha_tau_g1", "beta_tau_g1")],
          [(0, packed.a), (0, packed.b), (2 * m, packed.a), (m, packed.b), (0, packed.c)]),
-        (BN254_G2, bn254.G2_GEN, bn254.g2_add, 14, [P._jac(BN254_G2, pt["tau_g2"])],
+        (BN254_G2, 14, [P._jac(BN254_G2, pt["tau_g2"])],
          [(0, packed.b)]),
     )
-    for curve, base, add, log_n, srcs, parts in groups:
+    for curve, log_n, srcs, parts in groups:
         g, cb = curve.group, COORD_BYTES[curve.group]
         # (name, kernel rows, ladder points, digits, butterfly u or None, kernel fn, work, reps)
         jobs = []
@@ -1477,8 +1462,8 @@ def check_ladders(torch, checks, ptau_path, r1cs):
 
         # test shapes, every lane
         n = 1 << log_n
-        p = tuple(t.contiguous() for t in fixed_base_mul_batch(curve, base, add, lim(rand(n)),
-                                                               254))
+        p = tuple(t.contiguous() for t in fixed_base_mul_batch(curve, curve.generator,
+                                                               lim(rand(n)), 254))
         ladder_job(f"scalar_mul_g{g}[2^{log_n} lanes]", p, lim([0, 1, 2, R - 1] + rand(n - 4)))
         ladder_job(f"scalar_mul_g{g}[2^{log_n} lanes, one scalar]", p, lim(rand(1))[0])
         for log_half in (log_n - 1, 0):
@@ -1664,7 +1649,7 @@ def batch_multi_gpu(torch, checks, gen):
     c_ev = L.mont_mul(L.BN254_FR, a_ev, b_ev)  # A*B - C vanishes on the domain
     h_want, quotient_ms = once_ms(torch, lambda: N.quotient(a_ev, b_ev, c_ev))
     gens, scal = H.host_inputs(MSM_STAGES_LOG_N)
-    table = H.fixed_base_points(BN254_G1, bn254.G1_GEN, bn254.g1_add, gens, "cuda")
+    table = H.fixed_base_points(BN254_G1, gens, "cuda")
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to("cuda")
     msm_want = [bn254.g1_mul(bn254.G1_GEN, sum(s * g for s, g in zip(ss, gens)) % bn254.R)
                 for ss in (scal, scal[-1:] + scal[:-1])]
@@ -1694,11 +1679,10 @@ def batch_multi_gpu(torch, checks, gen):
         h_dist, ms = once_ms(torch, lambda: quotient_dist(a_ev, b_ev, c_ev, data_mesh))
         dist_ms.append(ms)
     t0 = time.perf_counter()
-    msm_got = [PM.msm_sharded(BN254_G1, table, sc, data_mesh, bn254.g1_add, bn254.g1_mul)]
+    msm_got = [PM.msm_sharded(BN254_G1, table, sc, data_mesh)]
     msm_sharded_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    msm_got += PM.msm_batch_sharded(BN254_G1, table, torch.stack([sc, sc.roll(1, 0)]), grid,
-                                    bn254.g1_add, bn254.g1_mul)
+    msm_got += PM.msm_batch_sharded(BN254_G1, table, torch.stack([sc, sc.roll(1, 0)]), grid)
     msm_batch_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     addr_card = K.eth_addresses_batch(pubs)
@@ -2179,10 +2163,13 @@ def profile_setup(torch, r1cs) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from zkpoa_tpu_torch import _build
+    from zkpoa_tpu_torch.ops.curve import BN254_G1
+    from zkpoa_tpu_torch.ops.fp2 import BN254_G2
     from zkpoa_tpu_torch.prover import setup as S
 
-    names = ("fixed_base_mul_batch", "jac_to_affine_mont", "g2_jac_to_affine_mont")
-    saved = {k: getattr(S, k) for k in names}
+    curves = (BN254_G1, BN254_G2)
+    saved_b8 = S.fixed_base_mul_batch
+    saved_affine = [type(c).__dict__["to_affine"] for c in curves]
     calls, digits = [], []
 
     def wrap(kind, fn):
@@ -2198,14 +2185,14 @@ def profile_setup(torch, r1cs) -> dict:
             return out
         return inner
 
-    def b8(ops, base, host_add, scalars, n_bits):
+    def b8(ops, base, scalars, n_bits):
         digits.append((ops.group, scalars.shape[0],
                        (scalars.contiguous().view(torch.uint8) != 0).sum()))
-        return wrap("b8", saved["fixed_base_mul_batch"])(ops, base, host_add, scalars, n_bits)
+        return wrap("b8", saved_b8)(ops, base, scalars, n_bits)
 
     S.fixed_base_mul_batch = b8
-    S.jac_to_affine_mont = wrap("affine_g1", saved["jac_to_affine_mont"])
-    S.g2_jac_to_affine_mont = wrap("affine_g2", saved["g2_jac_to_affine_mont"])
+    for c in curves:  # each curve's own conversion, wrapped on its class
+        type(c).to_affine = staticmethod(wrap(f"affine_g{c.group}", c.to_affine))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2214,8 +2201,9 @@ def profile_setup(torch, r1cs) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        for k, fn in saved.items():
-            setattr(S, k, fn)
+        S.fixed_base_mul_batch = saved_b8
+        for c, fn in zip(curves, saved_affine):
+            setattr(type(c), "to_affine", fn)
     path = os.path.join(OUT_DIR, "setup_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:

@@ -29,12 +29,11 @@ from zkpoa_tpu_torch.fields import bn254
 from zkpoa_tpu_torch.fields.bn254 import P, R
 from zkpoa_tpu_torch.host import domain_root, snarkjs_coset_shift
 from zkpoa_tpu_torch.models.r1cs import Circuit
-from zkpoa_tpu_torch.ops.curve import BN254_G1
-from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+from zkpoa_tpu_torch.ops.curve import BN254_G1, DeviceG1Points
+from zkpoa_tpu_torch.ops.fp2 import BN254_G2, DeviceG2Points
 from zkpoa_tpu_torch.prover import groth16
 from zkpoa_tpu_torch.prover.prove import prove
-from zkpoa_tpu_torch.prover.setup import (DeviceG1Points, DeviceG2Points, host_lists, setup,
-                                          setup_device)
+from zkpoa_tpu_torch.prover.setup import host_lists, setup, setup_device
 from zkpoa_tpu_torch.utils import binfmt
 from zkpoa_tpu_torch.utils import binfmt_torch as BT
 

@@ -33,7 +33,7 @@ from zkpoa_tpu_torch.ops.curve import (BN254_G1, fixed_base_device_table, fixed_
 from zkpoa_tpu_torch.ops.fp2 import BN254_G2
 from zkpoa_tpu_torch.prover import groth16
 from zkpoa_tpu_torch.prover.prove import prove
-from zkpoa_tpu_torch.prover.setup import DeviceG1Points, DeviceG2Points, setup_device
+from zkpoa_tpu_torch.prover.setup import setup_device
 from zkpoa_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -107,8 +107,7 @@ def _table(curve, base, add, mul, n, seed, repeat_first=0):
     ks[1 : 1 + repeat_first] = [ks[0]] * repeat_first
     pts = [mul(base, k) for k in ks]
     pts[n // 2] = None  # an absent row
-    cls = DeviceG1Points if curve.group == 1 else DeviceG2Points
-    return cls(*curve.encode_affine(pts, "cuda")), pts
+    return curve.table(*curve.encode_affine(pts, "cuda")), pts
 
 
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
@@ -135,7 +134,7 @@ def test_msm_kernels_match_plain_and_host(card, curve):
     for p, s in zip(pts, scal):
         if p is not None:
             want = add(want, mul(p, s))
-    assert M.msm_shared(curve, table, plan, add, mul) == want
+    assert M.msm_many(curve, [(table, plan, 0)])[0] == want
 
 
 def _group(curve):
@@ -187,7 +186,7 @@ def test_batched_reduce_matches_plain_and_msm_totals_are_exact(card, curve, thre
     for a, b in zip(got, M.reduce_plain(curve, buckets, 3 * nw, nb, threads)):
         assert torch.equal(a, b)
     _build.reset_counts()
-    totals = M.msm_many(curve, [(table, p, 0) for p in plans], add, mul)
+    totals = M.msm_many(curve, [(table, p, 0) for p in plans])
     assert _build.COUNTS.get(f"msm_reduce_g{curve.group}") == 1
     for s, total in zip(scals, totals):
         want = None
@@ -252,9 +251,9 @@ def test_fixed_base_kernel_matches_plain_and_host(card, curve, n_bits):
     scal = edge + [int.from_bytes(rng.bytes(32), "big") % (1 << n_bits) for _ in range(300)]
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card)
     # the table is encoded by B1 launches once per device: make it before counting
-    table = fixed_base_device_table(curve, base, add, n_bits, sc.device)
+    table = fixed_base_device_table(curve, base, n_bits, sc.device)
     _build.reset_counts()
-    got = fixed_base_mul_batch(curve, base, add, sc, n_bits)
+    got = fixed_base_mul_batch(curve, base, sc, n_bits)
     assert _build.COUNTS == {f"fixed_base_g{curve.group}": 1}
     want = fixed_base_plain(curve, *table, sc, n_bits)
     for a, b in zip(got, want):
@@ -538,7 +537,7 @@ def test_msm_many_heavy_sums_on_card(card, curve):
     assert sorted(v for v, _ in plan.heavy) == [1, 7]
     _build.reset_counts()
     with trace.collect() as events:
-        got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)], add, mul)
+        got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)])
     g = curve.group
     assert _build.COUNTS[f"msm_horner_g{g}"] == 1
     assert 1 <= _build.COUNTS[f"point_fold_g{g}"] <= 2
@@ -624,7 +623,8 @@ def test_host_syncs_of_a_prove_are_what_sync_debug_reports(layer_one):
     key, system, witness = layer_one
     counted, reported = _syncs_against_sync_debug(
         lambda: prove(key, system, witness, "cuda", r=3, s=4))
-    assert "prove.phase" not in counted
+    assert "prove.phase" not in counted and "plan.max_pieces" not in counted
+    assert counted["plan.combine"] >= 2  # the witness and h plans, each in its combine alone
     assert counted["plan.heavy_rows"] > 0  # layer one has heavy values
     assert counted["plan.unique"] == 1  # the witness plan; the h plan splits nothing
     assert _seen(counted) == sum(reported.values()), (counted, reported)
@@ -637,7 +637,6 @@ def test_a_prove_on_the_card_copies_its_witness_alone(layer_one):
     witness limb for limb, and its proof verifies (a whole CPU prove of
     layer one runs for over fifteen minutes)."""
     from zkpoa_tpu_torch.ops.qap_eval import eval_matrices_device
-    from zkpoa_tpu_torch.prover.prove import witness_limbs
 
     key, system, witness = layer_one
     with trace.collect() as events:
@@ -653,7 +652,7 @@ def test_a_prove_on_the_card_copies_its_witness_alone(layer_one):
     for t in (t for mat in mats for t in mat):
         assert t.is_cuda and t.dtype == torch.int32
     assert pool.is_cuda
-    limbs = torch.from_numpy(witness_limbs(witness)[0])
+    limbs = torch.from_numpy(host.witness_limbs(witness)[0])
     on_card = eval_matrices_device(packed, limbs.cuda(), key.domain_size)
     on_cpu = eval_matrices_device(packed, limbs, key.domain_size)
     for got, want in zip(on_card, on_cpu):
@@ -672,6 +671,8 @@ def test_host_syncs_of_a_plan_without_heavy_values_are_what_sync_debug_reports(c
     counted, reported = _syncs_against_sync_debug(lambda: M.plan_msm(limbs, 6))
     assert counted["plan.heavy_values"] == 1 and "plan.heavy_rows" not in counted
     assert counted["plan.unique"] == 1
+    # about 128 entries a bucket, so fewer pieces than COMBINE_FAN_IN: one combine level, one read
+    assert counted["plan.combine"] == 1 and "plan.max_pieces" not in counted
     assert _seen(counted) == sum(reported.values()), (counted, reported)
 
 
@@ -964,9 +965,9 @@ def test_fixed_base_kernel_on_sparse_and_ragged_scalars(card, curve, n):
     scal[500:520] = [int(k) for k in rng.integers(1, 256, size=20)]
     scal[-1] = bn254.R - 1
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(card)
-    table = fixed_base_device_table(curve, base, add, 254, sc.device)
+    table = fixed_base_device_table(curve, base, 254, sc.device)
     _build.reset_counts()
-    got = fixed_base_mul_batch(curve, base, add, sc, 254)
+    got = fixed_base_mul_batch(curve, base, sc, 254)
     assert _build.COUNTS == {f"fixed_base_g{curve.group}": 1}
     for a, b in zip(got, fixed_base_plain(curve, *table, sc, 254)):
         assert torch.equal(a, b)
@@ -995,7 +996,7 @@ def _ladder_inputs(curve, n, seed, card):
     base, add, mul = _group(curve)
     rng = np.random.default_rng(seed)
     g = [int.from_bytes(rng.bytes(32), "big") % bn254.R for _ in range(n)]
-    p = fixed_base_mul_batch(curve, base, add,
+    p = fixed_base_mul_batch(curve, base,
                              torch.from_numpy(host.scalars_to_limbs_fast(g)).to(card), 254)
     p = tuple(t.contiguous() for t in p)
     if n > 5:

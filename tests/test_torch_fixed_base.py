@@ -6,7 +6,10 @@ plain version `fixed_base_plain`; it must give the points of
 the jnp `_fb_fold`, as tests/test_prove_device.py does) and of host scalar
 multiplication, for G1 and G2, at n_bits 254 (setup) and 64. The scalars
 include 0, 1, r - 1, r, 2^248, all 32 digits equal, and a scalar whose top
-window adds P to P. Tolerance: exact equality of the decoded points."""
+window adds P to P. Tolerance: exact equality of the decoded points.
+Each curve object's own choices (generator, host arithmetic, affine
+conversion and table type) are held to the JAX package's host field
+arithmetic."""
 
 import numpy as np
 import pytest
@@ -16,14 +19,16 @@ import tests.conftest  # noqa: F401  (JAX on the CPU)
 
 import jax.numpy as jnp
 
+from zkpoa_tpu.fields import bn254 as jax_bn254
 from zkpoa_tpu.ops import curve_jax
 from zkpoa_tpu.ops import msm as jax_msm
 from zkpoa_tpu.ops.fp2_jax import BN254_G2 as JG2
 from zkpoa_tpu_torch import host
 from zkpoa_tpu_torch.fields import bn254
-from zkpoa_tpu_torch.ops.curve import (BN254_G1, fixed_base_device_table, fixed_base_mul_batch,
-                                       fixed_base_plain)
-from zkpoa_tpu_torch.ops.fp2 import BN254_G2
+from zkpoa_tpu_torch.ops.curve import (BN254_G1, DeviceG1Points, fixed_base_device_table,
+                                       fixed_base_mul_batch, fixed_base_plain)
+from zkpoa_tpu_torch.ops.fp2 import BN254_G2, DeviceG2Points
+from zkpoa_tpu_torch.prover.setup import table_points
 
 torch.set_num_threads(1)
 
@@ -55,7 +60,7 @@ def test_fixed_base_plain_matches_jax_and_host(case, n_bits):
     _, curve, jcurve, name, base, add, mul = case
     scalars = edge_scalars(n_bits, 32, seed=n_bits)
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scalars))
-    got = curve.decode_jac(fixed_base_mul_batch(curve, base, add, sc, n_bits))
+    got = curve.decode_jac(fixed_base_mul_batch(curve, base, sc, n_bits))
 
     jsc = jnp.asarray(jax_msm.scalars_to_limbs(scalars))
     want = jcurve.decode_jac(
@@ -74,9 +79,33 @@ def test_fixed_base_twin_matches_jax_fixed_base_mul_batch(case):
     _, curve, jcurve, name, base, add, mul = case
     scalars = edge_scalars(254, 32, seed=254)
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scalars))
-    table = fixed_base_device_table(curve, base, add, 254, sc.device)
+    table = fixed_base_device_table(curve, base, 254, sc.device)
     got = fixed_base_plain(curve, *table, sc, 254)
     jsc = jnp.asarray(jax_msm.scalars_to_limbs(scalars))
     want = jcurve.decode_jac(curve_jax.fixed_base_mul_batch(jcurve, name, base, add, jsc, 254))
     assert curve.decode_jac(got) == want
     assert want[:4] == [None, base, mul(base, R - 1), None]
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=["g1", "g2"])
+def test_each_curve_owns_its_host_ops_conversion_and_table(curve):
+    """The curve's generator and host add / multiply are the JAX package's
+    for its group, infinity (None) included; its device conversion and its
+    table type turn fixed-base multiples of the generator into the affine
+    table of [k G]."""
+    jg = 1 if curve is BN254_G1 else 2
+    gen, add, mul = (getattr(jax_bn254, n) for n in (f"G{jg}_GEN", f"g{jg}_add", f"g{jg}_mul"))
+    assert curve.generator == gen
+    p, q = mul(gen, 5), mul(gen, R - 7)
+    for a, b in ((p, q), (p, p), (p, mul(gen, R - 5)), (None, q), (p, None), (None, None)):
+        assert curve.host_add(a, b) == add(a, b)
+    for k in (0, 1, 2, R - 1, 12345678901234567890):
+        assert curve.host_mul(q, k) == mul(q, k)
+    assert curve.host_mul(None, 3) is None
+
+    scalars = edge_scalars(254, 12, seed=22)
+    sc = torch.from_numpy(host.scalars_to_limbs_fast(scalars))
+    tab = curve.table(*curve.to_affine(fixed_base_mul_batch(curve, curve.generator, sc, 254)))
+    assert type(tab) is (DeviceG2Points if jg == 2 else DeviceG1Points)
+    assert len(tab) == len(scalars) and tab.xs.shape[1:] == curve.coord_shape
+    assert table_points(tab) == [mul(gen, k % R) for k in scalars]

@@ -217,7 +217,7 @@ def test_msm_many_heavy_sums_equal_jax(group):
                 acc = add(acc, mul(p, s))
         return acc
 
-    got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)], add, mul)
+    got = M.msm_many(curve, [(table, plan, 0), (sub, plan, pad)])
     assert got == [host_msm(pts, scalars), host_msm(sub_pts, scalars[pad:])]
 
     segs = [(table, sel, 0) for _v, sel in plan.heavy] + [(sub, sel, pad) for _v, sel in plan.heavy]

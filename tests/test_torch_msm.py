@@ -17,9 +17,8 @@ from zkpoa_tpu.ops.curve_jax import BN254_G1 as JG1
 from zkpoa_tpu.ops.fp2_jax import BN254_G2 as JG2
 from zkpoa_tpu_torch import host
 from zkpoa_tpu_torch.ops import msm as M
-from zkpoa_tpu_torch.ops.curve import BN254_G1
-from zkpoa_tpu_torch.ops.fp2 import BN254_G2
-from zkpoa_tpu_torch.prover.setup import DeviceG1Points, DeviceG2Points
+from zkpoa_tpu_torch.ops.curve import BN254_G1, DeviceG1Points
+from zkpoa_tpu_torch.ops.fp2 import BN254_G2, DeviceG2Points
 
 torch.set_num_threads(1)
 
@@ -94,7 +93,7 @@ def test_msm_matches_host_and_jax(group):
     pts[9] = None  # absent point
     want = _host_msm(add, mul, pts, scalars)
     xs, ys, valid = port.encode_affine(pts, "cpu")
-    got = M.msm(port, _Table(xs, ys, valid), _sc(scalars), add, mul, c=5)
+    got = M.msm(port, _Table(xs, ys, valid), _sc(scalars), c=5)
     assert got == want
     jx, jy, jv = jops.encode_affine(pts)
     jt = _Table(jx, jy, jv)
@@ -123,12 +122,12 @@ def test_heavy_split_prefix_pad_and_in_bucket_doubling():
     xs, ys, valid = BN254_G1.encode_affine(pts, "cpu")
     table = DeviceG1Points(xs, ys, valid)
     want = _host_msm(bn254.g1_add, bn254.g1_mul, pts, scalars)
-    assert M.msm_shared(BN254_G1, table, plan, bn254.g1_add, bn254.g1_mul) == want
+    assert M.msm_many(BN254_G1, [(table, plan, 0)])[0] == want
 
     pad = 250  # a table for scalars [pad:], aligned by prefix_pad
     sub = DeviceG1Points(xs[pad:], ys[pad:], valid[pad:])
     want_sub = _host_msm(bn254.g1_add, bn254.g1_mul, pts[pad:], scalars[pad:])
-    assert M.msm_shared(BN254_G1, sub, plan, bn254.g1_add, bn254.g1_mul, prefix_pad=pad) == want_sub
+    assert M.msm_many(BN254_G1, [(sub, plan, pad)])[0] == want_sub
 
 
 def test_msm_many_shares_horner_across_tables():
@@ -141,8 +140,7 @@ def test_msm_many_shares_horner_across_tables():
     valid2[::3] = False
     table2 = DeviceG1Points(xs, ys, valid2)
     p1, p2 = M.plan_msm(_sc(s1), 5), M.plan_msm(_sc(s2), 5)
-    got = M.msm_many(BN254_G1, [(table, p1, 0), (table2, p1, 0), (table, p2, 0)],
-                     bn254.g1_add, bn254.g1_mul)
+    got = M.msm_many(BN254_G1, [(table, p1, 0), (table2, p1, 0), (table, p2, 0)])
     pts2 = [None if i % 3 == 0 else p for i, p in enumerate(pts)]
     assert got == [_host_msm(bn254.g1_add, bn254.g1_mul, pts, s1),
                    _host_msm(bn254.g1_add, bn254.g1_mul, pts2, s1),
@@ -156,7 +154,7 @@ def test_g2_table_msm_with_heavy_values():
     plan = M.plan_msm(_sc(scalars), c=5)
     assert [v for v, _ in plan.heavy] == [3]
     xs, ys, valid = BN254_G2.encode_affine(pts, "cpu")
-    got = M.msm_shared(BN254_G2, DeviceG2Points(xs, ys, valid), plan, bn254.g2_add, bn254.g2_mul)
+    got = M.msm_many(BN254_G2, [(DeviceG2Points(xs, ys, valid), plan, 0)])[0]
     assert got == _host_msm(bn254.g2_add, bn254.g2_mul, pts, scalars)
     assert n == len(scalars)
 

@@ -96,7 +96,14 @@ def test_piece_table_covers_every_entry_once(c, piece):
         k0, k1 = int(ptr[lane]), int(ptr[lane + 1])
         assert int(ps[k0]) == int(s[lane]) and int(pe[k1 - 1]) == int(e[lane])
         assert torch.equal(ps[k0 + 1 : k1], pe[k0 : k1 - 1])
-    assert plan.n_pieces == int(count.sum()) and plan.max_pieces == int(count.max())
+    assert plan.n_pieces == int(count.sum())
+    # the most pieces a bucket, from piece_ptr: what the combine's levels follow
+    most = int(count.max())
+    assert most == int((run_lens.max() + piece - 1) // piece)
+    if most <= M.COMBINE_FAN_IN:
+        assert len(plan.combine) == 1 and plan.combine_depth == most
+    else:
+        assert len(plan.combine) > 1 and plan.combine_depth > M.COMBINE_FAN_IN
 
 
 @pytest.mark.parametrize("fan_in", [2, 3, 8])
@@ -228,7 +235,7 @@ def test_msm_many_with_small_pieces_equals_host_and_jax(group):
     xs, ys, valid = curve.encode_affine(pts, "cpu")
     table = _Table(xs, ys, valid)
     p1, p2 = M.plan_msm(_sc(s1), 5, piece=2), M.plan_msm(_sc(s2), 5, piece=3)
-    got = M.msm_many(curve, [(table, p1, 0), (table, p2, 0)], add, mul)
+    got = M.msm_many(curve, [(table, p1, 0), (table, p2, 0)])
 
     def host_msm(scal):
         acc = None

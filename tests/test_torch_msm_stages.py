@@ -30,6 +30,7 @@ def test_harness_records_every_stage_and_an_exact_msm(tmp_path):
     assert (res["log_n"], res["c"], res["n"], res["device"]) == (10, 5, 1024, "cpu")
     assert (res["nw"], res["nb"]) == (51, 16) and res["occupancy"] > 0
     assert res["piece"] > 0 and res["pieces"] >= res["nw"] and res["combine_depth"] >= 1
+    assert 1 <= res["max_pieces"] <= -(-res["occupancy"] // res["piece"])
     for stage in STAGES:
         assert math.isfinite(res[stage]["warm_s"]) and res[stage]["best_s"] >= 0, stage
     for stage in (*LIBRARY, *KERNELS):

@@ -209,6 +209,8 @@ def test_h2d_bytes_are_the_arrays_the_prove_copies(proves):
     syncs = counts(proves["events"], "host_sync")
     assert not any(site.startswith("spmv") for site in syncs)
     assert syncs["witness"] == 1 and syncs["msm_decode_g1"] == syncs["msm_decode_g2"] == 1
+    # the witness and h plans each read their most pieces a bucket in their combine alone
+    assert "plan.max_pieces" not in syncs and syncs["plan.combine"] >= 2
     assert all(n > 0 for n in syncs.values())
 
 
@@ -330,10 +332,13 @@ def _limbs(values):
      {"plan.unique": 1, "plan.heavy_values": 1}),
     (lambda: M._heavy_split(_limbs([5] * M.HEAVY_COUNT_MIN + list(range(6, 50)))),
      {"plan.unique": 1, "plan.heavy_values": 2, "plan.heavy_rows": 3}),
-], ids=["no-buckets", "one-cut", "no-heavy", "one-heavy"])
+    (lambda: M.plan_msm(_limbs(list(range(1, 65))), 5, split_heavy=False),
+     {"plan.bincount": 2, "plan.piece_table": 1, "plan.combine": 1}),
+], ids=["no-buckets", "one-cut", "no-heavy", "one-heavy", "plan"])
 def test_host_syncs_are_counted_only_where_the_branch_waits(call, want):
     """An empty count skips its `max`, and an empty heavy-value search
-    copies nothing to the host: neither is counted as a wait."""
+    copies nothing to the host: neither is counted as a wait. A plan reads
+    the most pieces a bucket has once, in its combine."""
     with trace.collect() as events:
         call()
     assert counts(events, "host_sync") == want

@@ -1,5 +1,5 @@
 """The witness upload's native conversion (`csrc/witness_limbs.c`, through
-`prover/prove.py` `witness_limbs` and `_upload`) and its build
+`host.py` `witness_limbs` and `prover/prove.py` `_upload`) and its build
 (`_build.py` `build_host`, `host_lib`).
 
 The conversion must give `host.scalars_to_limbs_fast([int(x) % R for x in
@@ -68,7 +68,7 @@ CASES.update({
 @pytest.mark.parametrize("name", list(CASES))
 def test_native_conversion_equals_the_python_rule(name):
     xs = CASES[name]
-    limbs, n_miss = P.witness_limbs(xs)
+    limbs, n_miss = host.witness_limbs(xs)
     want = _want(xs)
     assert limbs.dtype == want.dtype and limbs.shape == want.shape == (len(xs), host.N_LIMBS)
     assert np.array_equal(limbs, want)

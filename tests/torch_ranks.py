@@ -22,10 +22,9 @@ import torch.distributed as dist  # noqa: E402
 
 from zkpoa_tpu_torch import host  # noqa: E402
 from zkpoa_tpu_torch.fields import bn254  # noqa: E402
-from zkpoa_tpu_torch.ops.curve import BN254_G1  # noqa: E402
+from zkpoa_tpu_torch.ops.curve import BN254_G1, DeviceG1Points  # noqa: E402
 from zkpoa_tpu_torch.parallel import batch_prove, ntt_dist  # noqa: E402
 from zkpoa_tpu_torch.parallel import mesh as PM  # noqa: E402
-from zkpoa_tpu_torch.prover.setup import DeviceG1Points  # noqa: E402
 
 
 def _table(mults):
@@ -45,22 +44,19 @@ def quotient_dist(job):
 
 def msm_sharded(job):
     mesh = PM.make_mesh(axis="data", device="cpu")
-    return PM.msm_sharded(BN254_G1, _table(job["mults"]), _limbs(job["scalars"][0]), mesh,
-                          bn254.g1_add, bn254.g1_mul)
+    return PM.msm_sharded(BN254_G1, _table(job["mults"]), _limbs(job["scalars"][0]), mesh)
 
 
 def msm_batch_sharded(job):
     mesh = PM.make_hierarchical_mesh(shape=(2, dist.get_world_size() // 2), device="cpu")
     scalars = torch.stack([_limbs(s) for s in job["scalars"][:2]])
-    return PM.msm_batch_sharded(BN254_G1, _table(job["mults"]), scalars, mesh, bn254.g1_add,
-                                bn254.g1_mul)
+    return PM.msm_batch_sharded(BN254_G1, _table(job["mults"]), scalars, mesh)
 
 
 def msm_batch_parallel(job):
     mesh = PM.make_mesh(axis="batch", device="cpu")
     scalars = torch.stack([_limbs(s) for s in job["scalars"][:dist.get_world_size()]])
-    return batch_prove.msm_batch_parallel(BN254_G1, _table(job["mults"]), scalars, mesh,
-                                          bn254.g1_add, bn254.g1_mul)
+    return batch_prove.msm_batch_parallel(BN254_G1, _table(job["mults"]), scalars, mesh)
 
 
 def mesh_placement(job):

@@ -14,9 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.curve import BN254_G1
-from .ops.fp2 import BN254_G2
-from .prover.setup import DeviceG1Points, DeviceG2Points, ProvingKey
+from .ops.curve import BN254_G1, DeviceG1Points
+from .ops.fp2 import BN254_G2, DeviceG2Points
+from .prover.setup import ProvingKey
 
 
 def limbs16_to_32(a) -> np.ndarray:

@@ -74,9 +74,7 @@ from .. import _build, host
 from ..fields import bn254
 from ..ops import gather as G
 from ..ops import msm as M
-from ..ops.curve import BN254_G1, fixed_base_mul_batch, jac_to_affine_mont
-from ..ops.fp2 import g2_jac_to_affine_mont
-from ..prover.setup import DeviceG1Points, DeviceG2Points
+from ..ops.curve import BN254_G1, fixed_base_mul_batch
 
 DEFAULT_OUT = os.path.join(_build.REPO_ROOT, "build", "torch_experiments", "msm_stages.json")
 REPS = {"cuda": 10, "cpu": 0}
@@ -111,13 +109,16 @@ def host_inputs(log_n: int, seed: int = SEED):
     return gens, scal
 
 
-def fixed_base_points(curve, base, host_add, gens, device):
-    """Affine device table of g_i * base for 63-bit g_i (B8 on the card)."""
+def fixed_base_points(curve, gens, device):
+    """Affine device table of g_i G for the curve's generator G and 63-bit
+    g_i (B8 on the card)."""
     sc = torch.from_numpy(host.scalars_to_limbs_fast(gens)).to(device)
-    jac = fixed_base_mul_batch(curve, base, host_add, sc, 64)
-    if curve.group == 1:
-        return DeviceG1Points(*jac_to_affine_mont(curve.field, jac))
-    return DeviceG2Points(*g2_jac_to_affine_mont(jac))
+    return curve.table(*curve.to_affine(fixed_base_mul_batch(curve, curve.generator, sc, 64)))
+
+
+def most_pieces(plan: M.WitnessMsmPlan) -> int:
+    """The most pieces any bucket of the plan has (read from the card)."""
+    return int((plan.piece_ptr[1:] - plan.piece_ptr[:-1]).max())
 
 
 def gather_cases(xy: torch.Tensor, visit: torch.Tensor, rng):
@@ -186,7 +187,7 @@ def run(log_n: int, c: int, device: torch.device, piece: int = M.PIECE) -> dict:
     log(f"N=2^{log_n} c={c}: {nw} windows of {nb} buckets on {name}")
 
     gens, scal = host_inputs(log_n)
-    table = fixed_base_points(BN254_G1, bn254.G1_GEN, bn254.g1_add, gens, device)
+    table = fixed_base_points(BN254_G1, gens, device)
     sc = torch.from_numpy(host.scalars_to_limbs_fast(scal)).to(device)
 
     res["digits"] = timeit("digits", lambda: M.recode(sc, c))
@@ -194,7 +195,7 @@ def run(log_n: int, c: int, device: torch.device, piece: int = M.PIECE) -> dict:
                                lambda: M.plan_msm(sc, c, split_heavy=False, piece=piece))
     plan = timeit.last
     res["occupancy"] = int((plan.starts[:, 1:] - plan.starts[:, :-1]).max())
-    res.update(piece=plan.piece, pieces=plan.n_pieces, max_pieces=plan.max_pieces,
+    res.update(piece=plan.piece, pieces=plan.n_pieces, max_pieces=most_pieces(plan),
                combine_levels=len(plan.combine), combine_depth=plan.combine_depth)
 
     xs = table.xs
@@ -228,8 +229,7 @@ def run(log_n: int, c: int, device: torch.device, piece: int = M.PIECE) -> dict:
     buckets = timeit.last
     res["reduce"] = timeit("reduce", lambda: M.reduce(BN254_G1, buckets, nw, nb))
 
-    res["msm"] = timeit("msm", lambda: M.msm(BN254_G1, table, sc, bn254.g1_add, bn254.g1_mul, c,
-                                             piece))
+    res["msm"] = timeit("msm", lambda: M.msm(BN254_G1, table, sc, c, piece))
     got = timeit.last
     want = bn254.g1_mul(bn254.G1_GEN, sum(s * k for s, k in zip(scal, gens)) % bn254.R)
     res["msm"].update(exact=got == want, x=str(got[0]) if got else None,

@@ -1,19 +1,20 @@
 """Framework-neutral host helpers, copied out of JAX modules.
 
-Each function below is a copy of a helper that lives inside a module of
-the JAX package that imports `jax` at load time; the port cannot import
-those modules, so it carries its own copies. Each copy names its original.
-Seeds and byte layouts are kept identical so that keys and proofs made by
-the port equal the JAX package's.
+Each function below but the port's own `witness_limbs` is a copy of a
+helper that lives inside a module of the JAX package that imports `jax` at
+load time; the port cannot import those modules, so it carries its own
+copies. Each copy names its original. Seeds and byte layouts are kept
+identical so that keys and proofs made by the port equal the JAX package's.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from . import _build
 from .fields.bn254 import FR_GENERATOR, R, TWO_ADICITY
 
 LIMB_BITS = 32
@@ -29,6 +30,24 @@ def scalars_to_limbs_fast(scalars, n_limbs: int = N_LIMBS) -> np.ndarray:
     blob = b"".join(int(s).to_bytes(4 * n_limbs, "little") for s in scalars)
     arr = np.frombuffer(blob, dtype="<u4").reshape(len(scalars), n_limbs)
     return arr.view(np.int32).copy()
+
+
+def witness_limbs(witness: Sequence[int]) -> Tuple[np.ndarray, int]:
+    """The values `int(x) % R` of a witness as plain limbs [n, 8] int32 (the
+    u32 bit pattern), equal to `scalars_to_limbs_fast([int(x) % R for x in
+    witness])` for every input, and the number of values that took the
+    Python fallback. One native pass (`csrc/witness_limbs.c`) converts each
+    exact int in [0, R); every other item is converted here, by the rule
+    above, and put in its row."""
+    n = len(witness)
+    limbs = np.empty((n, N_LIMBS), dtype=np.int32)
+    miss = np.empty(n, dtype=np.int64)
+    n_miss = _build.host_lib().zk_witness_limbs(witness, n, limbs.ctypes.data,
+                                                miss.ctypes.data)
+    if n_miss:
+        rows = miss[:n_miss]
+        limbs[rows] = scalars_to_limbs_fast([int(witness[i]) % R for i in rows.tolist()])
+    return limbs, n_miss
 
 
 def limbs_to_ints(limbs) -> List[int]:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import host
+from ..fields import bn254
 from . import field_kernels as FK
 from . import limbs as L
 from .limbs import BN254_FQ, FieldSpec
@@ -139,9 +140,28 @@ def jac_add_affine(ar: Arith, p: Jac, xq, yq, q_valid) -> Jac:
     return _sel3(ar, ~q_valid, p, out)
 
 
+class DeviceG1Points:
+    """G1 point table: Montgomery affine xs, ys [N, 8] int32 and valid [N]
+    bool on one device (infinity rows have valid False)."""
+
+    def __init__(self, xs, ys, valid):
+        self.xs = xs
+        self.ys = ys
+        self.valid = valid
+
+    def __len__(self):
+        return int(self.xs.shape[0])
+
+    def to(self, device) -> "DeviceG1Points":
+        return type(self)(self.xs.to(device), self.ys.to(device), self.valid.to(device))
+
+
 class _CurveBase:
     """Shared dispatch of the point ops: kernels on the card, plain
-    formulas on the CPU. Subclasses give `arith`, `group`, `coord_shape`."""
+    formulas on the CPU. Subclasses give `arith`, `group`, `coord_shape`
+    and the group's own choices: `generator`, the affine table type
+    `table`, the device conversion to its coordinates `to_affine`, and
+    exact host arithmetic on affine ints `host_add`, `host_mul`."""
 
     group: int
     coord_shape: Tuple[int, ...]
@@ -181,10 +201,16 @@ class CurveOps(_CurveBase):
     field: FieldSpec = BN254_FQ
     group: int = FK.G1
     coord_shape: Tuple[int, ...] = (8,)
-    name: str = "bn254_g1"
+    generator = bn254.G1_GEN
+    table = DeviceG1Points
+    host_add = staticmethod(bn254.g1_add)
+    host_mul = staticmethod(bn254.g1_mul)
 
     def arith(self, device) -> Arith:
         return fp_arith_plain(self.field, device)
+
+    def to_affine(self, p: Jac):
+        return jac_to_affine_mont(self.field, p)
 
     def encode_coords(self, values, device) -> torch.Tensor:
         return self.field.encode(values, device)
@@ -318,15 +344,15 @@ def _flat_coords(pt_coord) -> list:
     return list(pt_coord) if isinstance(pt_coord, tuple) else [pt_coord]
 
 
-def fixed_base_table(curve_name: str, base, host_add, n_bits: int):
+def fixed_base_table(curve, base, n_bits: int):
     """Windowed fixed-base table, table[j][e] = (e << (w*j)) * base with
     w = FB_WINDOW, as
     plain int32 limb arrays (xs, ys [nwin, 2^w, k, 8], valid [nwin, 2^w]);
     entry 0 of each row is a dummy with valid False. Built once per process
-    on the host with exact affine adds (port of `curve_jax.py:317`
-    `fixed_base_table`)."""
+    on the host with the curve's exact affine adds (port of
+    `curve_jax.py:317` `fixed_base_table`)."""
     w = FB_WINDOW
-    key = (curve_name, str(base), n_bits, w)
+    key = (curve.group, str(base), n_bits, w)
     if key in _FB_HOST:
         return _FB_HOST[key]
     nwin = (n_bits + w - 1) // w
@@ -338,12 +364,12 @@ def fixed_base_table(curve_name: str, base, host_add, n_bits: int):
         xs_i.extend([0] * k)
         ys_i.extend([0] * k)
         for e in range(1, 1 << w):
-            acc = host_add(acc, row_base)
+            acc = curve.host_add(acc, row_base)
             xs_i.extend(_flat_coords(acc[0]))
             ys_i.extend(_flat_coords(acc[1]))
             valid[j, e] = True
         for _ in range(w):
-            row_base = host_add(row_base, row_base)
+            row_base = curve.host_add(row_base, row_base)
     shape = (nwin, 1 << w, k, 8)
     xs = host.scalars_to_limbs_fast(xs_i).reshape(shape)
     ys = host.scalars_to_limbs_fast(ys_i).reshape(shape)
@@ -351,13 +377,13 @@ def fixed_base_table(curve_name: str, base, host_add, n_bits: int):
     return _FB_HOST[key]
 
 
-def fixed_base_device_table(ops, base, host_add, n_bits: int, device):
+def fixed_base_device_table(ops, base, n_bits: int, device):
     """The fixed-base table of `base` as Montgomery tensors on `device`
     (xs, ys [nwin, 2^w, *coord], valid [nwin, 2^w]), encoded once per
     process and device."""
-    dkey = (ops.name, str(base), n_bits, str(device))
+    dkey = (ops.group, str(base), n_bits, str(device))
     if dkey not in _FB_DEV:
-        xs, ys, valid = fixed_base_table(ops.name, base, host_add, n_bits)
+        xs, ys, valid = fixed_base_table(ops, base, n_bits)
         shape = xs.shape[:2] + ops.coord_shape
         spec = ops.field
         enc = lambda a: spec.to_mont(torch.from_numpy(a).to(device)).reshape(shape)  # noqa: E731
@@ -365,13 +391,13 @@ def fixed_base_device_table(ops, base, host_add, n_bits: int, device):
     return _FB_DEV[dkey]
 
 
-def fixed_base_mul_batch(ops, base, host_add, scalars: torch.Tensor, n_bits: int) -> Jac:
+def fixed_base_mul_batch(ops, base, scalars: torch.Tensor, n_bits: int) -> Jac:
     """[k_i * base] for plain-limb scalars [N, 8] below 2^n_bits:
     ceil(n_bits / FB_WINDOW) mixed adds of table entries instead of n_bits
     double-and-adds (port of `curve_jax.py:351` `fixed_base_mul_batch` and
     `:369` `fixed_base_mul_batch_pallas`). CUDA scalars launch kernel B8
     (csrc/fixed_base.cu); CPU scalars take the plain version."""
-    xs_t, ys_t, valid_t = fixed_base_device_table(ops, base, host_add, n_bits, scalars.device)
+    xs_t, ys_t, valid_t = fixed_base_device_table(ops, base, n_bits, scalars.device)
     if scalars.is_cuda:
         nwin = (n_bits + FB_WINDOW - 1) // FB_WINDOW
         return FK.fixed_base(ops.group, xs_t, ys_t, valid_t, scalars, nwin)

@@ -19,7 +19,7 @@ import torch
 from ..fields import bn254
 from . import field_kernels as FK
 from . import limbs as L
-from .curve import Arith, Jac, _CurveBase
+from .curve import Arith, DeviceG1Points, Jac, _CurveBase
 from .limbs import BN254_FQ, FieldSpec
 
 
@@ -87,6 +87,10 @@ def g2_jac_to_affine_mont(p: Jac):
     return fp2_mul(x, zinv2), fp2_mul(y, fp2_mul(zinv2, zinv)), valid
 
 
+class DeviceG2Points(DeviceG1Points):
+    """G2 point table: Fp2 coordinates [N, 2, 8]."""
+
+
 @dataclass(frozen=True)
 class G2Ops(_CurveBase):
     """BN254 G2 on the twist over Fp2; coordinates [..., 2, 8]."""
@@ -94,7 +98,11 @@ class G2Ops(_CurveBase):
     field: FieldSpec = BN254_FQ
     group: int = FK.G2
     coord_shape: Tuple[int, ...] = (2, 8)
-    name: str = "bn254_g2"
+    generator = bn254.G2_GEN
+    table = DeviceG2Points
+    host_add = staticmethod(bn254.g2_add)
+    host_mul = staticmethod(bn254.g2_mul)
+    to_affine = staticmethod(g2_jac_to_affine_mont)
 
     def arith(self, device) -> Arith:
         return fp2_arith_plain(device)

@@ -1,10 +1,11 @@
 """Pippenger multi-scalar multiplication for BN254 G1 and G2.
 
 Port of the prover's MSM path in `zkpoa_tpu/ops/msm_pallas.py`:
-`plan_witness_msms` / `WitnessMsmPlan` (:2015-2076), `msm_shared` with
-`prefix_pad` (:2177), the h-query MSM (`msm_tpu` :1855), the heavy-value
-split with `_tree_sum_subset` / `_lane_fold` (:1947, :1928), Horner over
-windows (:501) and `auto_c` (:2342).
+`plan_witness_msms` / `WitnessMsmPlan` (:2015-2076), `msm_shared`'s
+`prefix_pad` (:2177, a job's pad in `msm_many`), the h-query MSM
+(`msm_tpu` :1855), the heavy-value split with `_tree_sum_subset` /
+`_lane_fold` (:1947, :1928), Horner over windows (:501) and `auto_c`
+(:2342).
 
 The schedule is signed c-bit windows with 2^(c-1) buckets each:
   * recode: each scalar becomes nw = ceil(254 / c) digits with
@@ -151,8 +152,8 @@ class WitnessMsmPlan:
     flat positions order.view(-1)[piece_start[k]:piece_end[k]], and the
     pieces of bucket lane l = w * nb + b are piece_ptr[l]:piece_ptr[l+1].
     `combine` holds the levels that add a bucket's piece sums
-    (`combine_levels`); max_pieces is the most pieces any bucket has and
-    combine_depth the longest chain of full adds through the levels."""
+    (`combine_levels`); combine_depth is the longest chain of full adds
+    through them."""
 
     def __init__(self, c: Optional[int], n: int, order, starts, heavy, piece: int = PIECE,
                  shape: Optional[Tuple[int, int]] = None):
@@ -169,11 +170,6 @@ class WitnessMsmPlan:
         self.piece = piece
         self.piece_start, self.piece_end, self.piece_ptr = piece_table(starts, n, piece)
         self.n_pieces = int(self.piece_start.shape[0])
-        counts = self.piece_ptr[1:] - self.piece_ptr[:-1]
-        self.max_pieces = 0
-        if counts.numel():
-            trace.count("host_sync", site="plan.max_pieces")
-            self.max_pieces = int(counts.max())
         self.combine, self.combine_depth = combine_levels(self.piece_ptr, COMBINE_FAN_IN)
 
 
@@ -712,16 +708,16 @@ def tree_sum_many(curve, segments, block: int = TREE_BLOCK, chunk: Optional[int]
 # ---------------------------------------------------------------------------
 
 
-def msm_many(curve, jobs, host_add, host_mul) -> List:
+def msm_many(curve, jobs) -> List:
     """MSMs of several tables of one group, each against a plan: jobs are
     (table, plan, prefix_pad). Returns host affine points (None =
     infinity). The heavy values of every job are summed together
     (`tree_sum_many`); MSMs with the same window size share one reduction
     launch over all their windows and one Horner launch; the group's
-    Horner sums and heavy sums reach the host in one copy. `prefix_pad`
-    aligns a table that covers only a suffix of the scalars (the C-query
-    skips the n_public + 1 public wires): scalar i meets table row
-    i - prefix_pad."""
+    Horner sums and heavy sums reach the host in one copy, and the curve's
+    host arithmetic combines them there. `prefix_pad` aligns a table that
+    covers only a suffix of the scalars (the C-query skips the
+    n_public + 1 public wires): scalar i meets table row i - prefix_pad."""
     segments, owners = [], []
     for i, (table, plan, pad) in enumerate(jobs):
         for val, sel in plan.heavy:
@@ -748,22 +744,16 @@ def msm_many(curve, jobs, host_add, host_mul) -> List:
             if s is not None:
                 if val != 1:
                     trace.count("host_mul", site=f"heavy_g{curve.group}")
-                    s = host_mul(s, val)
-                out[i] = s if out[i] is None else host_add(out[i], s)
+                    s = curve.host_mul(s, val)
+                out[i] = s if out[i] is None else curve.host_add(out[i], s)
         for i, pt in zip(dest, pts[len(owners):]):
             if pt is not None:
-                out[i] = pt if out[i] is None else host_add(out[i], pt)
+                out[i] = pt if out[i] is None else curve.host_add(out[i], pt)
     return out
 
 
-def msm_shared(curve, table, plan: WitnessMsmPlan, host_add, host_mul, prefix_pad: int = 0):
-    """One table's MSM against a shared plan (port of `msm_shared`)."""
-    return msm_many(curve, [(table, plan, prefix_pad)], host_add, host_mul)[0]
-
-
-def msm(curve, table, scalars: torch.Tensor, host_add, host_mul, c: Optional[int] = None,
-        piece: int = PIECE):
+def msm(curve, table, scalars: torch.Tensor, c: Optional[int] = None, piece: int = PIECE):
     """MSM of one table against its own scalars [N, 8], with no heavy
     split (random scalars, as in the h-query)."""
     plan = plan_msm(scalars, c, split_heavy=False, piece=piece)
-    return msm_shared(curve, table, plan, host_add, host_mul)
+    return msm_many(curve, [(table, plan, 0)])[0]

@@ -36,15 +36,15 @@ from .mesh import _block, axis_size, gather_objects
 CHUNK = 2
 
 
-def msm_batch_parallel(curve, table, scalars_nb: torch.Tensor, mesh: DeviceMesh, host_add,
-                       host_mul, axis: str = "batch") -> List:
+def msm_batch_parallel(curve, table, scalars_nb: torch.Tensor, mesh: DeviceMesh,
+                       axis: str = "batch") -> List:
     """One MSM per batch [NB, N, 8] (plain limbs) over the mesh's batch
     axis: the table held by every rank, this rank's block of batches in
     one `msm_many`, the results gathered. Returns NB host points on every
     rank (NB must divide into the axis's ranks)."""
     block = scalars_nb[_block(scalars_nb.shape[0], mesh, axis)]
     plans = [M.plan_msm(sc.contiguous()) for sc in block]
-    parts = M.msm_many(curve, [(table, p, 0) for p in plans], host_add, host_mul)
+    parts = M.msm_many(curve, [(table, p, 0) for p in plans])
     return [pt for part in gather_objects(parts, mesh.get_group(axis)) for pt in part]
 
 

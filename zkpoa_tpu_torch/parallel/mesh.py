@@ -141,15 +141,16 @@ def _sliced(table, sl: slice):
     return type(table)(table.xs[sl], table.ys[sl], table.valid[sl])
 
 
-def tree_sum(points: List, host_add):
-    """The log-depth tree of `mesh.py:68-84` over host points (None is
-    infinity): pairs i, i + m/2 added, an odd tail added to the first."""
+def tree_sum(curve, points: List):
+    """The log-depth tree of `mesh.py:68-84` over host points of the curve
+    (None is infinity): pairs i, i + m/2 added, an odd tail added to the
+    first."""
     reduced, m = list(points), len(points)
     while m > 1:
         half = m // 2
-        summed = [host_add(reduced[i], reduced[half + i]) for i in range(half)]
+        summed = [curve.host_add(reduced[i], reduced[half + i]) for i in range(half)]
         if m % 2:
-            summed[0] = host_add(summed[0], reduced[m - 1])
+            summed[0] = curve.host_add(summed[0], reduced[m - 1])
         reduced, m = summed, half
     return reduced[0]
 
@@ -161,8 +162,8 @@ def gather_objects(obj, group=None) -> List:
     return out
 
 
-def msm_sharded(curve, table, scalars: torch.Tensor, mesh: DeviceMesh, host_add, host_mul,
-                c: Optional[int] = None, axis: str = "data"):
+def msm_sharded(curve, table, scalars: torch.Tensor, mesh: DeviceMesh, c: Optional[int] = None,
+                axis: str = "data"):
     """MSM with the table's points and the scalars [N, 8] (plain limbs)
     sharded along `axis`: this rank's block through `ops/msm.py` `msm`,
     then the ranks' partial sums combined as group elements. Returns the
@@ -170,12 +171,12 @@ def msm_sharded(curve, table, scalars: torch.Tensor, mesh: DeviceMesh, host_add,
     one-device MSM. N must divide into the axis's ranks (pad upstream with
     rows whose `valid` is False)."""
     sl = _block(scalars.shape[0], mesh, axis)
-    part = M.msm(curve, _sliced(table, sl), scalars[sl].contiguous(), host_add, host_mul, c)
-    return tree_sum(gather_objects(part, mesh.get_group(axis)), host_add)
+    part = M.msm(curve, _sliced(table, sl), scalars[sl].contiguous(), c)
+    return tree_sum(curve, gather_objects(part, mesh.get_group(axis)))
 
 
-def msm_batch_sharded(curve, table, scalars_nb: torch.Tensor, mesh: DeviceMesh, host_add,
-                      host_mul, c: Optional[int] = None, batch_axis: str = "batch",
+def msm_batch_sharded(curve, table, scalars_nb: torch.Tensor, mesh: DeviceMesh,
+                      c: Optional[int] = None, batch_axis: str = "batch",
                       data_axis: str = "data") -> List:
     """Hierarchical MSM over a 2-D mesh: the batches [NB, N, 8] over
     `batch_axis`, each batch's points sharded over `data_axis`. Partial
@@ -186,7 +187,7 @@ def msm_batch_sharded(curve, table, scalars_nb: torch.Tensor, mesh: DeviceMesh, 
     dsl = _block(scalars_nb.shape[1], mesh, data_axis)
     local = _sliced(table, dsl)
     plans = [M.plan_msm(sc[dsl].contiguous(), c, split_heavy=False) for sc in scalars_nb[bsl]]
-    parts = M.msm_many(curve, [(local, p, 0) for p in plans], host_add, host_mul)
+    parts = M.msm_many(curve, [(local, p, 0) for p in plans])
     gathered = gather_objects(parts, mesh.get_group(data_axis))
-    sums = [tree_sum([g[b] for g in gathered], host_add) for b in range(len(parts))]
+    sums = [tree_sum(curve, [g[b] for g in gathered]) for b in range(len(parts))]
     return [pt for block in gather_objects(sums, mesh.get_group(batch_axis)) for pt in block]

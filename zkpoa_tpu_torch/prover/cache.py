@@ -22,7 +22,9 @@ from typing import Callable, List, Optional
 import torch
 
 from ..models.r1cs import R1CS
-from .setup import DeviceG1Points, DeviceG2Points, ProvingKey, setup_device
+from ..ops.curve import BN254_G1
+from ..ops.fp2 import BN254_G2
+from .setup import ProvingKey, setup_device
 
 _TABLES = ("a_query", "b1_query", "c_query", "h_query", "b2_query")
 _HOST_FIELDS = ("n_vars", "n_public", "domain_size", "alpha1", "beta1", "delta1",
@@ -65,9 +67,9 @@ def load_key(path: str, device) -> ProvingKey:
         meta[k] = _tuples(meta[k])
     kw = {}
     for name in _TABLES:
-        cls = DeviceG2Points if name == "b2_query" else DeviceG1Points
+        curve = BN254_G2 if name == "b2_query" else BN254_G1
         t = blob["tables"][name]
-        kw[name] = cls(t["xs"], t["ys"], t["valid"])
+        kw[name] = curve.table(t["xs"], t["ys"], t["valid"])
     return ProvingKey(**kw, **meta)
 
 

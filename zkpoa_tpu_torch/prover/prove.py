@@ -15,10 +15,9 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
-from .. import _build, host
+from .. import host
 from ..fields import bn254
 from ..fields.bn254 import R
 from ..models.r1cs import R1CS
@@ -43,28 +42,10 @@ def _stack(rows):
     return rows[0].unsqueeze(0) if len(rows) == 1 else torch.stack(rows)
 
 
-def witness_limbs(witness: Sequence[int]) -> Tuple[np.ndarray, int]:
-    """The values `int(x) % R` of a witness as plain limbs [n, 8] int32 (the
-    u32 bit pattern), equal to `host.scalars_to_limbs_fast([int(x) % R for x
-    in witness])` for every input, and the number of values that took the
-    Python fallback. One native pass (`csrc/witness_limbs.c`) converts each
-    exact int in [0, R); every other item is converted here, by the rule
-    above, and put in its row."""
-    n = len(witness)
-    limbs = np.empty((n, host.N_LIMBS), dtype=np.int32)
-    miss = np.empty(n, dtype=np.int64)
-    n_miss = _build.host_lib().zk_witness_limbs(witness, n, limbs.ctypes.data,
-                                                miss.ctypes.data)
-    if n_miss:
-        rows = miss[:n_miss]
-        limbs[rows] = host.scalars_to_limbs_fast([int(witness[i]) % R for i in rows.tolist()])
-    return limbs, n_miss
-
-
 def _upload(witness: Sequence[int], device) -> torch.Tensor:
     """A witness as plain limbs [n, 8] on the device."""
     with trace.span("prove.upload.limbs"):
-        limbs, n_miss = witness_limbs(witness)
+        limbs, n_miss = host.witness_limbs(witness)
         if n_miss:
             trace.count("convert_fallback", n_miss, site="witness")
     with trace.span("prove.upload.copy"):
@@ -114,21 +95,19 @@ def _prove_device(pk: ProvingKey, r1cs: R1CS, witnesses: Sequence[Sequence[int]]
         phase("quotient h(X)")
         with trace.span("prove.plans"):
             wplans = [M.plan_msm(w_dev) for w_dev in w_devs]
-            c_h = M.auto_c(len(pk.h_query))
-            hplans = [M.plan_msm(h[i], c_h, split_heavy=False) for i in range(len(witnesses))]
+            hplans = [M.plan_msm(h[i], split_heavy=False) for i in range(len(witnesses))]
             del h
             heavy = sum(len(p.heavy) for p in wplans)
-        phase(f"MSM plans (c={wplans[0].c}/{c_h}, {heavy} heavy values)")
+        phase(f"MSM plans (c={wplans[0].c}/{hplans[0].c}, {heavy} heavy values)")
         with trace.span("prove.g1_msms"):
             jobs = []
             for wplan, hplan in zip(wplans, hplans):
                 jobs += [(pk.a_query, wplan, 0), (pk.b1_query, wplan, 0),
                          (pk.c_query, wplan, pk.n_public + 1), (pk.h_query, hplan, 0)]
-            g1 = M.msm_many(BN254_G1, jobs, bn254.g1_add, bn254.g1_mul)
+            g1 = M.msm_many(BN254_G1, jobs)
         phase("a/b1/c/h G1 MSMs")
         with trace.span("prove.g2_msm"):
-            b2 = M.msm_many(BN254_G2, [(pk.b2_query, wplan, 0) for wplan in wplans],
-                            bn254.g2_add, bn254.g2_mul)
+            b2 = M.msm_many(BN254_G2, [(pk.b2_query, wplan, 0) for wplan in wplans])
         phase("b2 G2 MSM")
         with trace.span("prove.assembly"):
             proofs = [_assemble_proof(pk, *g1[4 * i: 4 * i + 4], b2[i], r, s)

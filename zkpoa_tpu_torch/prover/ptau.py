@@ -45,15 +45,14 @@ from ..fields.bn254 import R
 from ..models.r1cs import R1CS
 from ..ops import limbs as L
 from ..ops import msm as M
-from ..ops.curve import BN254_G1, jac_to_affine_mont, scalar_mul_batch
-from ..ops.fp2 import BN254_G2, g2_jac_to_affine_mont
+from ..ops.curve import BN254_G1, DeviceG1Points, scalar_mul_batch
+from ..ops.fp2 import BN254_G2, DeviceG2Points
 from ..ops.group_ntt import lagrange_points
 from ..ops.limbs import BN254_FQ, BN254_FR
 from ..ops.ntt import pow_table
 from ..utils import binfmt, binfmt_torch as BT, trace
 from .groth16 import VerifyingKey
-from .setup import (DeviceG1Points, DeviceG2Points, ProvingKey, _domain, _g1_query_device,
-                    _g2_query_device)
+from .setup import ProvingKey, _domain, _query_device
 
 PTAU_MAGIC = b"ptau"
 N8 = 32
@@ -105,10 +104,11 @@ def write_dev_ptau(path: str, power: int, seed: str = "zkpoa-dev-ceremony", devi
     taus = spec.from_mont(pow_table(tau, 2 * n - 1, device))
     header = struct.pack("<I", N8) + bn254.P.to_bytes(N8, "little") + struct.pack(
         "<II", power, power)
-    g1 = _g1_query_device(torch.cat([
+    g1 = _query_device(BN254_G1, torch.cat([
         taus, spec.from_mont(pow_table(tau, n, device, scale=alpha)),
         spec.from_mont(pow_table(tau, n, device, scale=beta))]))
-    g2 = _g2_query_device(torch.cat([taus[:n], spec.from_mont(spec.encode([beta], device))]))
+    beta_t = spec.from_mont(spec.encode([beta], device))
+    g2 = _query_device(BN254_G2, torch.cat([taus[:n], beta_t]))
     sections = [
         (1, header),
         (2, BT.table_bytes(_rows(g1, slice(0, 2 * n - 1)))),
@@ -188,9 +188,7 @@ def _lagrange_g2(tab: DeviceG2Points, m: int):
 
 
 def _affine(ops, p) -> DeviceG1Points:
-    if ops is BN254_G1:
-        return DeviceG1Points(*jac_to_affine_mont(BN254_FQ, p))
-    return DeviceG2Points(*g2_jac_to_affine_mont(p))
+    return ops.table(*ops.to_affine(p))
 
 
 def _cat(tabs: Sequence[DeviceG1Points]) -> DeviceG1Points:

@@ -1,13 +1,15 @@
 """Groth16 development setup over BN254 with device-resident point tables.
 
-Port of `zkpoa_tpu/prover/setup.py`: `ProvingKey` (:41), the device point
-tables (:100, :132), `_lagrange_at_tau_device` (:304),
-`_setup_scalars_device` (:329), `_g1_query_device` / `_g2_query_device`
-(:171, :204), `_g1_points_from_scalars` / `_g2_points_from_scalars` and
-`setup_device` (:541), and the host-list `setup` (:485), built as
-`setup_device` then `host_lists`. The trapdoors come from the same seeded
-hash, so for the same circuit and seed the port makes the same key as the
-JAX package.
+Port of `zkpoa_tpu/prover/setup.py`: `ProvingKey` (:41),
+`_lagrange_at_tau_device` (:304), `_setup_scalars_device` (:329),
+`_g1_query_device` / `_g2_query_device` (:171, :204) as one
+`_query_device` of the curve, `_g1_points_from_scalars` /
+`_g2_points_from_scalars` as one `_points_from_scalars`, `setup_device`
+(:541), and the host-list `setup` (:485), built as `setup_device` then
+`host_lists`. The device point tables (:100, :132) live beside their
+curves, in `ops/curve.py` and `ops/fp2.py`. The trapdoors come from the
+same seeded hash, so for the same circuit and seed the port makes the
+same key as the JAX package.
 
 SECURITY NOTE: a development setup; the toxic waste is derived from a seed.
 """
@@ -20,38 +22,17 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from .. import host
-from ..fields import bn254
 from ..fields.bn254 import R
 from ..models.r1cs import R1CS
 from ..ops import limbs as L
-from ..ops.curve import BN254_G1, fixed_base_mul_batch, jac_to_affine_mont
-from ..ops.fp2 import BN254_G2, g2_jac_to_affine_mont
+from ..ops.curve import BN254_G1, DeviceG1Points, fixed_base_mul_batch
+from ..ops.fp2 import BN254_G2, DeviceG2Points
 from ..ops.limbs import BN254_FR
 from ..ops.ntt import pow_table
 from ..ops.qap_eval import eval_at_tau_device
 from .groth16 import VerifyingKey
 
 SETUP_CHUNK = 1 << 20  # fixed-base scalars per batch (bounds scratch memory)
-
-
-class DeviceG1Points:
-    """G1 query table: Montgomery affine xs, ys [N, 8] int32 and valid [N]
-    bool on one device (infinity rows have valid False)."""
-
-    def __init__(self, xs, ys, valid):
-        self.xs = xs
-        self.ys = ys
-        self.valid = valid
-
-    def __len__(self):
-        return int(self.xs.shape[0])
-
-    def to(self, device) -> "DeviceG1Points":
-        return type(self)(self.xs.to(device), self.ys.to(device), self.valid.to(device))
-
-
-class DeviceG2Points(DeviceG1Points):
-    """G2 query table: Fp2 coordinates [N, 2, 8]."""
 
 
 @dataclass
@@ -142,40 +123,26 @@ def _setup_scalars_device(r1cs: R1CS, seed: str, h_basis: str, device):
                 alpha=alpha, beta=beta, gamma=gamma, delta=delta)
 
 
-def _query_device(curve, base, host_add, to_affine, table_cls, scalars: torch.Tensor):
-    """[k_i * base] as an affine device table, in SETUP_CHUNK batches of
-    fixed-base multiplication plus one batched inversion each."""
+def _query_device(curve, scalars: torch.Tensor):
+    """[k_i G] for the curve's generator G as the curve's affine device
+    table, in SETUP_CHUNK batches of fixed-base multiplication plus one
+    batched inversion each."""
     parts = []
     for off in range(0, scalars.shape[0], SETUP_CHUNK):
-        jac = fixed_base_mul_batch(curve, base, host_add, scalars[off : off + SETUP_CHUNK], 254)
-        parts.append(to_affine(jac))
+        jac = fixed_base_mul_batch(curve, curve.generator, scalars[off : off + SETUP_CHUNK], 254)
+        parts.append(curve.to_affine(jac))
     if not parts:
         empty = curve.infinity((0,), scalars.device)
-        return table_cls(empty[0], empty[1], torch.zeros(0, dtype=torch.bool, device=scalars.device))
-    return table_cls(*(torch.cat([p[i] for p in parts]) for i in range(3)))
+        return curve.table(empty[0], empty[1],
+                           torch.zeros(0, dtype=torch.bool, device=scalars.device))
+    return curve.table(*(torch.cat([p[i] for p in parts]) for i in range(3)))
 
 
-def _g1_query_device(scalars: torch.Tensor) -> DeviceG1Points:
-    return _query_device(BN254_G1, bn254.G1_GEN, bn254.g1_add,
-                         lambda j: jac_to_affine_mont(BN254_G1.field, j), DeviceG1Points, scalars)
-
-
-def _g2_query_device(scalars: torch.Tensor) -> DeviceG2Points:
-    return _query_device(BN254_G2, bn254.G2_GEN, bn254.g2_add,
-                         g2_jac_to_affine_mont, DeviceG2Points, scalars)
-
-
-def _g1_points_from_scalars(scalars: Sequence[int], device) -> List:
-    """[k_i * G1] as host affine points (few points)."""
-    sc = torch.from_numpy(host.scalars_to_limbs_fast([int(s) % R for s in scalars])).to(device)
-    jac = fixed_base_mul_batch(BN254_G1, bn254.G1_GEN, bn254.g1_add, sc, 254)
-    return BN254_G1.decode_jac(jac)
-
-
-def _g2_points_from_scalars(scalars: Sequence[int], device) -> List:
-    sc = torch.from_numpy(host.scalars_to_limbs_fast([int(s) % R for s in scalars])).to(device)
-    jac = fixed_base_mul_batch(BN254_G2, bn254.G2_GEN, bn254.g2_add, sc, 254)
-    return BN254_G2.decode_jac(jac)
+def _points_from_scalars(curve, scalars: Sequence[int], device) -> List:
+    """[k_i G] for the curve's generator G as host affine points (few
+    points)."""
+    sc = torch.from_numpy(host.witness_limbs(scalars)[0]).to(device)
+    return curve.decode_jac(fixed_base_mul_batch(curve, curve.generator, sc, 254))
 
 
 def setup_device(r1cs: R1CS, device, seed: str = "zkpoa-test-srs",
@@ -185,7 +152,7 @@ def setup_device(r1cs: R1CS, device, seed: str = "zkpoa-test-srs",
     s = _setup_scalars_device(r1cs, seed, h_basis, device)
     log("setup: QAP scalars ready")
     g1_scalars = [s["a_t"], s["b_t"], s["c_scalars"], s["h_scalars"]]
-    g1 = _g1_query_device(torch.cat(g1_scalars))  # one batch for the four
+    g1 = _query_device(BN254_G1, torch.cat(g1_scalars))  # one batch for the four
     tables, off = [], 0
     for part in g1_scalars:
         sl = slice(off, off + part.shape[0])
@@ -193,14 +160,14 @@ def setup_device(r1cs: R1CS, device, seed: str = "zkpoa-test-srs",
         off += part.shape[0]
     a_query, b1_query, c_query, h_query = tables
     log("setup: G1 queries ready")
-    b2_query = _g2_query_device(s["b_t"])
+    b2_query = _query_device(BN254_G2, s["b_t"])
     log("setup: G2 query ready")
 
     alpha, beta, gamma, delta = s["alpha"], s["beta"], s["gamma"], s["delta"]
-    small = _g1_points_from_scalars(s["ic_scalars"] + [alpha, beta, delta], device)
+    small = _points_from_scalars(BN254_G1, s["ic_scalars"] + [alpha, beta, delta], device)
     ic_pts = small[: len(s["ic_scalars"])]
     alpha1, beta1, delta1 = small[-3], small[-2], small[-1]
-    beta2, gamma2, delta2 = _g2_points_from_scalars([beta, gamma, delta], device)
+    beta2, gamma2, delta2 = _points_from_scalars(BN254_G2, [beta, gamma, delta], device)
     vk = VerifyingKey(alpha_1=alpha1, beta_2=beta2, gamma_2=gamma2, delta_2=delta2,
                       ic=ic_pts, n_public=s["n_pub"])
     return ProvingKey(

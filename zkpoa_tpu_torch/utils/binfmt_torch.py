@@ -34,8 +34,10 @@ import torch
 from .. import host
 from ..fields import bn254
 from ..models.r1cs import R1CS, RowList
+from ..ops.curve import DeviceG1Points
+from ..ops.fp2 import DeviceG2Points
 from ..prover.groth16 import VerifyingKey
-from ..prover.setup import DeviceG1Points, DeviceG2Points, ProvingKey, table_points
+from ..prover.setup import ProvingKey, table_points
 from . import binfmt
 
 N8 = binfmt.N8
